@@ -9,7 +9,9 @@ with ``torch.profiler`` after an unprofiled warm-up run of that window:
 - encode (frontend + 70 SANM layers + adaptor) of the 60 s clip;
 - the CTC head (5 blocks + 60515-way projection + device argmax);
 - prefill of a 200-token prompt in the 256 bucket;
-- 16 decode steps, greedy and at T = 0.4.
+- 16 decode steps of the engine's default fused path (K4), greedy and at
+  T = 0.4, and 16 greedy steps of the unfused path on the same weights;
+- 16 verify rounds of 9 rows (spec_k = 8) with an empty draft, greedy.
 
 For each window it prints the wall time, the device busy time (the union
 of kernel and memcpy intervals on the card), the idle share, and the
@@ -89,6 +91,7 @@ def profile_window(label, fn, setup=lambda: None):
 def main():
     from fun_asr_gguf_tpu.audio import load_audio
     from fun_asr_gguf_tpu_torch import create_asr_engine
+    from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
 
     chip_smoke.phase_device()
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as root:
@@ -100,10 +103,23 @@ def main():
             _embd, enc = m.encode_audio(audio)
             prompt = np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32)
 
-            def decode(temp):
-                return lambda state: m.generate(
-                    state, temp, 1.0, 50, chunk_len=DECODE_STEPS,
-                    limit=DECODE_STEPS)
+            unfused = {k: v for k, v in m.llm_params.items()
+                       if k != "q8_fused"}
+            draft = torch.full((1, m.config.spec_draft_len), -1,
+                               dtype=torch.int64, device=m.device)
+
+            def decode(temp, params=m.llm_params):
+                def run(state):
+                    with torch.inference_mode():
+                        return generate_chunk(
+                            params, state, m.hybrid_cfg.llm, temp, 1.0, 50,
+                            chunk_len=DECODE_STEPS,
+                            stop_tokens=m.stop_tokens)
+                return run
+
+            def verify(state):
+                return m.spec_generate(state, draft, 0.0, 1.0, 50,
+                                       chunk_len=DECODE_STEPS)
 
             windows = [
                 ("encode 60 s (frontend + 70 SANM + adaptor)",
@@ -112,10 +128,15 @@ def main():
                  lambda _: m.ctc_indices(enc), lambda: None),
                 ("prefill, 200-token prompt in bucket 256",
                  lambda _: m.prefill(prompt, rng_seed=0), lambda: None),
-                (f"decode {DECODE_STEPS} steps greedy", decode(0.0),
-                 lambda: m.prefill(prompt, rng_seed=0)),
-                (f"decode {DECODE_STEPS} steps T=0.4", decode(0.4),
-                 lambda: m.prefill(prompt, rng_seed=0)),
+                (f"decode {DECODE_STEPS} steps greedy, fused (K4)",
+                 decode(0.0), lambda: m.prefill(prompt, rng_seed=0)),
+                (f"decode {DECODE_STEPS} steps greedy, unfused",
+                 decode(0.0, unfused), lambda: m.prefill(prompt, rng_seed=0)),
+                (f"decode {DECODE_STEPS} steps T=0.4, fused (K4)",
+                 decode(0.4), lambda: m.prefill(prompt, rng_seed=0)),
+                (f"verify {DECODE_STEPS} rounds of 9 rows greedy, fused",
+                 verify, lambda: m.spec_prepare(m.prefill(prompt,
+                                                          rng_seed=0))),
             ]
             reports = []
             for label, fn, setup in windows:

@@ -1,12 +1,14 @@
 """Per-segment pipeline: encode → CTC + hotwords → prompt → LLM → align.
 
-Counterpart of ``fun_asr_gguf_tpu/core/decoder.py`` without the
-speculation branch (:149-218): greedy CTC + hotword recall
-(:class:`CTCDecoder`), chunked on-device generation read once per chunk
-(:class:`LLMDecoder`), and the retry with +0.3 temperature on repetition
-aborts, up to 6 attempts (:class:`StreamDecoder`, :340-354).
+Counterpart of ``fun_asr_gguf_tpu/core/decoder.py``: greedy CTC + hotword
+recall (:class:`CTCDecoder`), whose transcript doubles as the speculative
+draft; CTC-draft speculation with its probe chunk and acceptance guardrail,
+then chunked on-device generation read once per chunk (:class:`LLMDecoder`,
+:146-250); and the retry with +0.3 temperature on repetition aborts, up to
+6 attempts (:class:`StreamDecoder`, :340-354).
 """
 
+import logging
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -19,7 +21,10 @@ from fun_asr_gguf_tpu.datatypes import (DecodeResult, LLMDecodeResult,
 from fun_asr_gguf_tpu.display import DisplayReporter
 from fun_asr_gguf_tpu.formats.tokenizer import StreamTextDecoder
 
+from ..models.speculative import spec_to_gen
 from .model_manager import ModelManager
+
+logger = logging.getLogger("fun_asr_gguf_tpu_torch.core")
 
 ABORT_MARKER = "====解码有误，强制熔断===="
 
@@ -70,7 +75,8 @@ class LLMDecoder:
                stream_output: bool = False,
                reporter: Optional[DisplayReporter] = None,
                temperature: float = 0.3, top_p: float = 1.0,
-               top_k: int = 50) -> LLMDecodeResult:
+               top_k: int = 50,
+               draft_text: Optional[str] = None) -> LLMDecodeResult:
         res = LLMDecodeResult()
         models = self.models
         sync = (torch.cuda.synchronize if models.device.type == "cuda"
@@ -82,26 +88,72 @@ class LLMDecoder:
         sync(models.device)
         res.t_inject = time.perf_counter() - t0
 
+        # CTC-draft speculation (distribution-preserving, see
+        # models/speculative.py)
+        draft_ids = None
+        if models.config.speculative and draft_text:
+            draft_ids = models.make_draft_ids(draft_text)
+        if draft_ids is not None:
+            state = models.spec_prepare(state)
+
         t0 = time.perf_counter()
         text_decoder = StreamTextDecoder(models.tokenizer,
                                          reporter if stream_output else None)
         chunk_len = models._default_chunk_len()
         stop_set = set(models.stop_tokens) | {models.eos_token}
         generated = 0
-        while generated < n_predict:
+
+        def push_chunk(tokens, done) -> Tuple[int, bool]:
+            """The one host sync of a chunk: its tokens and done flag.
+            Returns (tokens emitted, done)."""
+            host = torch.cat([tokens[0], done[:1].to(torch.int64)]
+                             ).cpu().tolist()
+            emitted = [t for t in host[:-1] if t >= 0]
+            for tok in emitted:
+                if tok not in stop_set:
+                    text_decoder.push(tok)
+            return len(emitted), bool(host[-1])
+
+        done = False
+        first_spec = True
+        while generated < n_predict and draft_ids is not None:
+            todo = min(chunk_len, n_predict - generated)
+            if first_spec:
+                # probe: the guardrail may bail after <= 16 emissions
+                # instead of paying a full chunk of verify rounds
+                todo = min(todo, 16)
+                first_spec = False
+            tokens = models.spec_generate(
+                state, draft_ids, temperature=temperature, top_p=top_p,
+                top_k=top_k, chunk_len=chunk_len, limit=todo)
+            n_emitted, done = push_chunk(tokens, state.done)
+            generated += n_emitted
+            if done or n_emitted == 0:
+                done = True
+                break
+            # acceptance-rate guardrail: a verify round costs about one
+            # decode step, so below spec_min_accept emitted tokens per
+            # round drafting is slower than plain decode; a pending forbid
+            # rides along into the plain chunk's first draw
+            rounds = int(state.rounds[0].item())
+            min_acc = models.config.spec_min_accept
+            if rounds >= 8 and min_acc > 0 and generated / rounds < min_acc:
+                logger.info("speculation off: %.2f tokens/round < %.2f "
+                            "(%d rounds)", generated / rounds, min_acc, rounds)
+                state = spec_to_gen(state)
+                draft_ids = None
+        if draft_ids is not None:
+            rounds = int(state.rounds[0].item())
+            logger.info("speculation: %d tokens in %d verify rounds",
+                        generated, rounds)
+
+        while not done and generated < n_predict:
             todo = min(chunk_len, n_predict - generated)
             tokens = models.generate(state, temperature=temperature,
                                      top_p=top_p, top_k=top_k,
                                      chunk_len=chunk_len, limit=todo)
             generated += todo
-            # the one host sync of the chunk: its tokens and done flag
-            host = torch.cat([tokens[0], state.done[:1].to(torch.int64)]
-                             ).cpu().tolist()
-            for tok in host[:-1]:
-                if tok >= 0 and tok not in stop_set:
-                    text_decoder.push(tok)
-            if host[-1]:
-                break
+            _, done = push_chunk(tokens, state.done)
         res.is_aborted = bool(state.aborted[0].item())
         text_decoder.flush()
         res.text = text_decoder.generated_text
@@ -176,7 +228,8 @@ class StreamDecoder:
             llm_res = self.llm_decoder.decode(
                 full_embd, models.config.n_predict,
                 stream_output=bool(stream_output), reporter=reporter,
-                temperature=temperature, top_p=top_p, top_k=top_k)
+                temperature=temperature, top_p=top_p, top_k=top_k,
+                draft_text=draft_text)
             if not llm_res.is_aborted:
                 break
             temperature += 0.3

@@ -3,11 +3,15 @@
 Counterpart of ``fun_asr_gguf_tpu/core/model_manager.py``. The init stages:
 
 1. checkpoint → port parameters on the device (q8_0 decoder, the q8_0
-   lm_head built from the embedding as loaded, packed qkv / gate_up);
+   lm_head built from the embedding as loaded, packed qkv / gate_up and,
+   with ``fuse_projections``, the ``q8_fused`` marker that routes decode
+   and verify through K4, as JAX's fuse at :151-166 does);
 2. tokenizer (stop ids);
 3. CTC vocab + prompt builder over the host f32 embedding table;
 4. warm-up: one encode, one CTC pass, one prefill + generate chunk per
-   sampling mode (builds the CUDA kernels on first use);
+   sampling mode, and with ``speculative`` one speculative chunk and the
+   plain chunk that follows ``spec_to_gen`` (builds the CUDA kernels on
+   first use);
 5. hotword manager (+ the opt-in rule corrector and correction RAG).
 """
 
@@ -31,7 +35,10 @@ from ..models.adaptor import ctc_head_forward
 from ..models.audio_encoder import AudioEncoderConfig, audio_encoder_forward
 from ..models.generate import generate_chunk, prefill_init
 from ..models.loaders import load_checkpoint
-from ..models.qwen3 import pack_qwen3_params, quantize_lm_head
+from ..models.qwen3 import (fuse_qwen3_params_q8, pack_qwen3_params,
+                            quantize_lm_head)
+from ..models.speculative import (spec_generate_chunk, spec_init,
+                                  spec_to_gen)
 
 logger = logging.getLogger("fun_asr_gguf_tpu_torch.core")
 
@@ -102,7 +109,8 @@ class ModelManager:
             self.llm_params = quantize_lm_head(self.llm_params,
                                                self.hybrid_cfg.llm)
             if self.config.fuse_projections:
-                self.llm_params = pack_qwen3_params(self.llm_params)
+                self.llm_params = fuse_qwen3_params_q8(
+                    pack_qwen3_params(self.llm_params))
             self.audio_cfg = AudioEncoderConfig(
                 encoder=self.hybrid_cfg.encoder,
                 adaptor=self.hybrid_cfg.adaptor)
@@ -218,11 +226,16 @@ class ModelManager:
         mask = np.zeros((1, bucket), dtype=np.float32)
         mask[0, bucket - p_len:] = 1.0
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        max_len = bucket + self.config.n_predict
+        if self.config.speculative:
+            # a verify round writes spec_k + 1 rows from the next free slot;
+            # the rejected ones need room to land in
+            max_len += self.config.spec_k + 1
         return prefill_init(
             self.llm_params,
             torch.from_numpy(buf).to(self.device, self._compute_dtype),
             torch.from_numpy(mask).to(self.device), gen,
-            self.hybrid_cfg.llm, max_len=bucket + self.config.n_predict)
+            self.hybrid_cfg.llm, max_len=max_len)
 
     @torch.inference_mode()
     def generate(self, state, temperature: float, top_p: float, top_k: int,
@@ -231,6 +244,30 @@ class ModelManager:
                               temperature, top_p, top_k, chunk_len=chunk_len,
                               stop_tokens=self.stop_tokens, limit=limit)
 
+    def make_draft_ids(self, draft_text: str) -> Optional[torch.Tensor]:
+        """Tokenize a CTC transcript into the [1, spec_draft_len] draft
+        buffer on the device (-1 padded)."""
+        if not draft_text or self.tokenizer is None:
+            return None
+        ids = self.tokenizer.encode(draft_text)[:self.config.spec_draft_len]
+        buf = torch.full((1, self.config.spec_draft_len), -1,
+                         dtype=torch.int64)
+        buf[0, :len(ids)] = torch.tensor(ids, dtype=torch.int64)
+        return buf.to(self.device)
+
+    def spec_prepare(self, state):
+        """GenState (from :meth:`prefill`) → speculative carry."""
+        return spec_init(state)
+
+    @torch.inference_mode()
+    def spec_generate(self, state, draft_ids, temperature: float,
+                      top_p: float, top_k: int, chunk_len: int,
+                      limit: Optional[int] = None):
+        return spec_generate_chunk(
+            self.llm_params, state, draft_ids, self.hybrid_cfg.llm,
+            temperature, top_p, top_k, spec_k=self.config.spec_k,
+            chunk_len=chunk_len, stop_tokens=self.stop_tokens, limit=limit)
+
     def _warmup(self):
         sr = self.config.sample_rate
         _embd, enc = self.encode_audio(np.zeros(sr, dtype=np.float32))
@@ -238,10 +275,21 @@ class ModelManager:
             self.ctc_indices(enc)
         bucket = min(self.config.prefill_buckets)
         fake = np.zeros((bucket, self.hybrid_cfg.llm.hidden), np.float32)
+        chunk = self._default_chunk_len()
         for temp in (0.0, 0.4):
             state = self.prefill(fake, rng_seed=0)
+            if self.config.speculative and self.config.enable_ctc:
+                # the speculative chunk, and the plain chunk that continues
+                # a state the guardrail converted
+                draft = torch.full((1, self.config.spec_draft_len), -1,
+                                   dtype=torch.int64, device=self.device)
+                sstate = self.spec_prepare(state)
+                self.spec_generate(sstate, draft, temperature=temp,
+                                   top_p=1.0, top_k=50, chunk_len=chunk,
+                                   limit=1)
+                state = spec_to_gen(sstate)
             self.generate(state, temperature=temp, top_p=1.0, top_k=50,
-                          chunk_len=self._default_chunk_len(), limit=2)
+                          chunk_len=chunk, limit=2)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

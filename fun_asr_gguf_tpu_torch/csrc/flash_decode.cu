@@ -9,10 +9,11 @@
 //
 // One block per (kv head, batch row) serves the `group` query heads that
 // share the kv head (GQA: query head h reads kv head h / group) for all T
-// query rows — R = T * group rows. Phase 1: each warp takes cache slots in
-// turn, its 32 lanes split head_dim (4 values each) and the dot products of
-// all R rows are reduced with shuffles; scores land in shared memory.
-// Phase 2: one warp per row finds max/sum and writes the bf16-rounded
+// query rows — R = T * group rows. Phase 1: the R query rows sit in shared
+// memory; each lane takes its own cache slot and dots the whole K row with
+// every query row (broadcast reads, no shuffle reduction, which made the
+// earlier lanes-split-head_dim mapping cost 5 shuffles per (slot, row) and
+// grew with R); scores land in shared memory. Phase 2: one warp per row finds max/sum and writes the bf16-rounded
 // probabilities back. Phase 3: warps take slots in turn again, lanes own 4
 // head_dim columns, so every V row is read once, coalesced; the per-warp
 // partial sums meet in shared memory.
@@ -29,7 +30,8 @@
 namespace {
 
 constexpr int kHd = 128;          // head_dim (lanes x 4)
-constexpr int kMaxR = 16;         // T * group rows per block
+constexpr int kMaxR = 18;         // T * group rows per block: verify at
+                                  // spec_k = 8 is 9 rows x GQA group 2
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -46,6 +48,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <int MR>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ kc,
@@ -57,52 +60,60 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int group = qh / kh;
   const int R = T * group;
   float* sc = smem;                          // [R][S] scores -> probs
-  float* red = smem + static_cast<size_t>(R) * S;   // [warps][R][hd]
+  // [warps][R][hd], 16-byte aligned for the float4 reads of phase 1
+  float* red = smem + ((static_cast<size_t>(R) * S + 3) & ~size_t{3});
 
   const int hk = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // query rows r = t*group + g -> head hk*group + g; 4 values per lane
-  float qv[kMaxR][4];
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    if (r < R) {
-      const int t = r / group, h = hk * group + r % group;
-      const __nv_bfloat16* qp =
-          q + ((static_cast<size_t>(b) * T + t) * qh + h) * kHd + lane * 4;
-      const uint2 raw = *reinterpret_cast<const uint2*>(qp);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[r][i] = __bfloat162float(e[i]);
-    }
+  // query rows r = t*group + g -> head hk*group + g, staged in f32 in the
+  // region phase 3 reduces into (unused until then)
+  float* qs = red;                                   // [R][hd]
+  for (int i = tid; i < R * kHd; i += kThreads) {
+    const int r = i / kHd, t = r / group, h = hk * group + r % group;
+    qs[i] = __bfloat162float(
+        q[((static_cast<size_t>(b) * T + t) * qh + h) * kHd + i % kHd]);
   }
+  __syncthreads();
 
-  // phase 1: scores
+  // phase 1: scores; each lane takes one cache slot (32 per warp step) and
+  // dots its whole K row with all R query rows, read from shared memory as
+  // broadcasts: no shuffle reduction per (slot, row)
   const size_t row_stride = static_cast<size_t>(kh) * kHd;    // per slot
   const __nv_bfloat16* kb = kc + static_cast<size_t>(b) * S * row_stride +
                             static_cast<size_t>(hk) * kHd;
-  for (int s = warp; s < S; s += kWarps) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        kb + static_cast<size_t>(s) * row_stride + lane * 4));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    float kv[4];
+  for (int s = warp * 32 + lane; s < S; s += kWarps * 32) {
+    const __nv_bfloat16* kr = kb + static_cast<size_t>(s) * row_stride;
+    float acc[MR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) kv[i] = __bfloat162float(e[i]);
+    for (int r = 0; r < MR; ++r) acc[r] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < kHd; c += 8) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + c));
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      float kv[8];
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      if (r < R) {
-        float a = qv[r][0] * kv[0];
-        a = fmaf(qv[r][1], kv[1], a);
-        a = fmaf(qv[r][2], kv[2], a);
-        a = fmaf(qv[r][3], kv[3], a);
-        a = warp_sum(a);
-        if (lane == 0) {
-          const int t = r / group;
-          sc[static_cast<size_t>(r) * S + s] =
-              a + bias[(static_cast<size_t>(b) * T + t) * S + s];
+      for (int i = 0; i < 8; ++i) kv[i] = __bfloat162float(e[i]);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r < R) {
+          const float4 q0 = *reinterpret_cast<const float4*>(qs + r * kHd + c);
+          const float4 q1 =
+              *reinterpret_cast<const float4*>(qs + r * kHd + c + 4);
+          float a = acc[r];
+          a = fmaf(q0.x, kv[0], a); a = fmaf(q0.y, kv[1], a);
+          a = fmaf(q0.z, kv[2], a); a = fmaf(q0.w, kv[3], a);
+          a = fmaf(q1.x, kv[4], a); a = fmaf(q1.y, kv[5], a);
+          a = fmaf(q1.z, kv[6], a); a = fmaf(q1.w, kv[7], a);
+          acc[r] = a;
         }
       }
     }
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+      if (r < R)
+        sc[static_cast<size_t>(r) * S + s] =
+            acc[r] + bias[(static_cast<size_t>(b) * T + r / group) * S + s];
   }
   __syncthreads();
 
@@ -130,9 +141,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // partial sums are added in shared memory
   const __nv_bfloat16* vb = vc + static_cast<size_t>(b) * S * row_stride +
                             static_cast<size_t>(hk) * kHd + lane * 4;
-  float acc[kMaxR][4];
+  float acc[MR][4];
 #pragma unroll
-  for (int r = 0; r < kMaxR; ++r)
+  for (int r = 0; r < MR; ++r)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
 #pragma unroll 4
@@ -141,7 +152,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         vb + static_cast<size_t>(s) * row_stride));
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
+    for (int r = 0; r < MR; ++r) {
       if (r < R) {
         const float p = sc[static_cast<size_t>(r) * S + s];
 #pragma unroll
@@ -151,7 +162,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 #pragma unroll
-  for (int r = 0; r < kMaxR; ++r)
+  for (int r = 0; r < MR; ++r)
     if (r < R)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -175,7 +186,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 // q: bf16 [B, T, qh, hd] (pre-scaled); k, v: bf16 [B, S, kh, hd];
 // bias: f32 [B, T, S]; out: bf16 [B, qh, T, hd]. hd == 128,
-// T * (qh / kh) <= 16 (checked by the wrapper).
+// T * (qh / kh) <= 18 (checked by the wrapper).
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* bias, void* out, int B, int T,
                                  int qh, int kh, int S, int hd, void* stream) {
@@ -183,13 +194,16 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = T * (qh / kh);
   const size_t smem =
-      (static_cast<size_t>(R) * S + kWarps * R * kHd) * sizeof(float);
+      (((static_cast<size_t>(R) * S + 3) & ~size_t{3}) + kWarps * R * kHd) *
+      sizeof(float);
+  // two instances: R <= 4 serves the decode step (one row per query head
+  // of the group), R <= 18 the verify step; unused rows cost registers
+  auto kernel = R <= 4 ? flash_decode_kernel<4> : flash_decode_kernel<kMaxR>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_decode_kernel<<<dim3(kh, B), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(kh, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), T, qh, kh, S);

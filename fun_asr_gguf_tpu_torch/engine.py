@@ -1,9 +1,12 @@
 """Public facade: FunASREngine / create_asr_engine.
 
 Counterpart of ``fun_asr_gguf_tpu/engine.py`` with the same checkpoint
-directory and call surface. The port covers the q8_0 decoder with plain
-decoding at batch 1, so its defaults differ from the JAX facade's:
-``llm_weight_format="q8_0"`` and ``speculative=False``. Settings outside
+directory and call surface. The port covers the q8_0 decoder at batch 1
+with the JAX engine's default decode: the fused per-layer chain
+(``fuse_projections=True``, kernel K4) and CTC-draft speculation
+(``speculative=True``, ``spec_k=8``, with the ``spec_min_accept``
+guardrail). Its one default that differs from the JAX facade's is
+``llm_weight_format="q8_0"`` (JAX: ``"auto"``, int8). Settings outside
 that slice raise ``NotImplementedError`` naming the ROADMAP item that
 ports them; none of them runs something else instead.
 """
@@ -46,7 +49,10 @@ class FunASREngine:
                  fuse_projections: bool = True,
                  ctc_beam_size: int = 1,
                  warmup: bool = True,
-                 speculative: bool = False,
+                 speculative: bool = True,
+                 spec_k: int = 8,
+                 spec_draft_len: int = 512,
+                 spec_min_accept: float = 1.35,
                  mesh_shape: Optional[dict] = None,
                  kv_cache_dtype: str = "bf16",
                  device: Optional[str] = None):
@@ -56,9 +62,6 @@ class FunASREngine:
         if kv_cache_dtype != "bf16":
             _todo(f"kv_cache_dtype={kv_cache_dtype!r}",
                   "Weight formats and the int8 KV cache")
-        if speculative:
-            _todo("speculative=True (CTC-draft speculation)",
-                  "CTC-draft speculation")
         if mesh_shape:
             _todo("mesh_shape (multi-device serving)", "Multi-GPU and training")
         if ctc_beam_size > 1:
@@ -83,7 +86,9 @@ class FunASREngine:
             prefill_buckets=tuple(prefill_buckets),
             llm_weight_format=llm_weight_format,
             fuse_projections=fuse_projections, ctc_beam_size=ctc_beam_size,
-            warmup=warmup, speculative=False, kv_cache_dtype=kv_cache_dtype)
+            warmup=warmup, speculative=speculative, spec_k=spec_k,
+            spec_draft_len=spec_draft_len, spec_min_accept=spec_min_accept,
+            kv_cache_dtype=kv_cache_dtype)
         self.device = dev
         self.models = ModelManager(self.config, dev)
         self.orchestrator = TranscriptionOrchestrator(self.models)

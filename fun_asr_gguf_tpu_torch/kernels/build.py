@@ -35,9 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (restype is always int = cudaError_t)
 SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
     "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -70,23 +72,44 @@ def library_path() -> Path:
     return BUILD_ROOT / _digest() / "libfunasr_kernels.so"
 
 
+def _run_all(cmds, verbose: bool):
+    """Run the commands concurrently; raise with the output of a failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{stdout}\n{stderr}")
+        elif verbose and stderr:
+            print(stderr)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if it is not cached; return its path."""
+    """Compile the kernel library if it is not cached; return its path.
+    Each source compiles in its own ``nvcc``, all started together; one
+    more links the objects."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    flags = ["-Xptxas=-v", *NVCC_FLAGS] if verbose else NVCC_FLAGS
+    compile_flags = [f for f in flags if f != "-shared"]
+    objs, cmds = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{src.stem}.{tag}.o")   # nvcc wants .o
+        objs.append(str(obj))
+        cmds.append([nvcc, *compile_flags, "-c", str(src), "-o", str(obj)])
+    _run_all(cmds, verbose)
+    tmp = out.with_name(f"{out.name}.{tag}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *objs]], verbose)
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)   # atomic: a concurrent builder never loads half a file
     return out
 

@@ -12,7 +12,10 @@ a later PR.)
 
 Reference behaviour kept: stop ids {151643, 151645} end generation and are
 not counted; the sampled token is fed back even when it is a stop id; the
-fuse aborts when the last 30 counted tokens hold ≤ 3 distinct ids.
+fuse aborts when the last 30 counted tokens hold ≤ 3 distinct ids; a
+pending ``forbid`` (a speculative draft rejected just before the
+speculation guardrail handed the state over, :func:`..speculative.
+spec_to_gen`) is excluded from the chunk's first draw only (JAX :132-136).
 """
 
 from dataclasses import dataclass
@@ -20,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.sampling import sample_token
+from ..ops.sampling import sample_residual
 from .qwen3 import KVCache, embed_tokens, qwen3_decode_step, qwen3_prefill
 
 RING = 30          # fuse window
@@ -40,6 +43,8 @@ class GenState:
     done: torch.Tensor         # [B] bool
     aborted: torch.Tensor      # [B] bool
     prompt_slots: int          # P
+    forbid: torch.Tensor       # [B] int64 — id excluded from the next
+    #   draw only (-1: none); see spec_to_gen
 
 
 def prefill_init(params, embeds, attn_mask, generator: torch.Generator, cfg,
@@ -58,7 +63,8 @@ def prefill_init(params, embeds, attn_mask, generator: torch.Generator, cfg,
         n_gen=torch.zeros(b, dtype=torch.int64, device=dev),
         done=torch.zeros(b, dtype=torch.bool, device=dev),
         aborted=torch.zeros(b, dtype=torch.bool, device=dev),
-        prompt_slots=p)
+        prompt_slots=p,
+        forbid=torch.full((b,), -1, dtype=torch.int64, device=dev))
 
 
 def _distinct_count(ring):
@@ -82,8 +88,13 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     rows = torch.arange(b, device=dev)
     p = state.prompt_slots
     for t in range(n_steps):
-        token = sample_token(state.logits, state.generator, temperature,
-                             top_p, top_k)
+        # sample_residual with no exclusion is sample_token; a pending
+        # exclusion is consumed by exactly one draw
+        token = sample_residual(state.logits, state.generator, temperature,
+                                top_p, top_k,
+                                state.forbid if t == 0 else None)
+        if t == 0:
+            state.forbid = torch.full_like(state.forbid, -1)
         active = ~state.done
         is_stop = torch.isin(token, stops)
         counted = active & ~is_stop

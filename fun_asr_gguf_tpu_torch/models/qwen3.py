@@ -3,13 +3,21 @@
 Counterpart of the qwen3 path of ``fun_asr_gguf_tpu/models/qwen3.py``:
 ``rope_cos_sin`` :379 / ``apply_rope`` :399 (half-split rotation), qk
 RMSNorm, ``init_kv_cache`` :361, ``qwen3_prefill`` :1309,
-``qwen3_decode_step`` :1415, ``_attend_cache`` :315, ``_logits`` :1935 and
-``quantize_lm_head`` :629. Sliding windows, MoE, MLA and softcaps are not
-ported (other decoder families).
+``qwen3_decode_step`` :1415, ``qwen3_verify_step`` :1630,
+``_attend_cache`` :315, ``_logits`` :1935, ``quantize_lm_head`` :629 and
+``fuse_qwen3_params_q8`` :657. Sliding windows, MoE, MLA and softcaps are
+not ported (other decoder families).
 
 Every projection and the lm_head go through K1 (``ops.quant_matmul``);
-decode attention goes through K2 (``ops.flash_decode``). Prefill
+decode and verify attention go through K2 (``ops.flash_decode``). Prefill
 attention is plain PyTorch, as the JAX package leaves it to XLA.
+
+Params carrying the ``q8_fused`` marker (:func:`fuse_qwen3_params_q8`)
+decode and verify through K4: JAX's "megacall v2" branch (:1574-1602,
+:1769-1795), one launch per layer that runs o-proj → post norm → gate_up →
+gate → down and the NEXT layer's input norm + qkv; only layer 0's qkv and
+the head stay on K1. The TPU's perm space is not ported, so the fused tree
+keeps every byte where the packed tree has it.
 
 KV cache: ``[n_layers, B, max_len, kv_heads, head_dim]`` in the compute
 dtype. The prompt occupies slots ``[P - L, P)`` of a left-padded bucket of
@@ -26,7 +34,8 @@ import torch
 from fun_asr_gguf_tpu.formats.quant_np import q8_0_quantize
 
 from ..ops.flash_decode import flash_decode_attention
-from ..ops.quant_matmul import Q8Weight, concat_rows, layer, matmul_any
+from ..ops.quant_matmul import (Q8Weight, concat_rows, layer, matmul_any,
+                                q8_mlp_fused, q8_mlp_qkv_fused)
 from .common import rms_norm
 
 NEG_INF = -1e30
@@ -94,6 +103,24 @@ def pack_qwen3_params(params):
     return out
 
 
+def fuse_qwen3_params_q8(params):
+    """Mark a packed q8_0 tree for the fused decode (K4). Moves no byte:
+    the perm space the JAX fuse adopts (``qwen3.py:657``) exists only for
+    the TPU's lane layout."""
+    if "q8_fused" in params:
+        return params
+    layers = params["layers"]
+    if "input_ln" not in layers:
+        raise ValueError("fuse_qwen3_params_q8 needs pre-norm layers")
+    for key in ("qkv_w", "o_w", "gate_up_w", "down_w"):
+        if not isinstance(layers.get(key), Q8Weight):
+            raise ValueError(
+                f"fuse_qwen3_params_q8 needs packed q8_0 params ({key})")
+    out = dict(params)
+    out["q8_fused"] = torch.zeros((0,), dtype=torch.int8)    # marker
+    return out
+
+
 def _layer_params(layers, l: int):
     return {k: layer(w, l) if isinstance(w, Q8Weight) else w[l]
             for k, w in layers.items()}
@@ -134,14 +161,21 @@ def _attn_scale(cfg) -> float:
 
 def _qkv(x, lp, cfg, cos, sin):
     """x [B, T, H] → q [B,T,qh,D], k/v [B,T,kh,D] (qk-norm + rope)."""
-    b, t, _ = x.shape
-    qd = cfg.q_heads * cfg.head_dim
-    kd = cfg.kv_heads * cfg.head_dim
     if "qkv_w" in lp:
         qkv = _proj(x, lp["qkv_w"])
-        q, k, v = qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
     else:
-        q, k, v = (_proj(x, lp[n]) for n in ("q_w", "k_w", "v_w"))
+        qkv = torch.cat([_proj(x, lp[n]) for n in ("q_w", "k_w", "v_w")],
+                        dim=-1)
+    return _qkv_post(qkv, lp, cfg, cos, sin)
+
+
+def _qkv_post(qkv, lp, cfg, cos, sin):
+    """Raw packed qkv [B, T, n_qkv] → q [B,T,qh,D], k/v [B,T,kh,D]: split
+    into heads, qk-norm and rope (JAX ``_qkv_post`` :799)."""
+    b, t, _ = qkv.shape
+    qd = cfg.q_heads * cfg.head_dim
+    kd = cfg.kv_heads * cfg.head_dim
+    q, k, v = qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
     q = q.reshape(b, t, cfg.q_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
@@ -164,6 +198,30 @@ def _mlp(x, lp):
     else:
         gate, up = _proj(x, lp["gate_w"]), _proj(x, lp["up_w"])
     return _proj(torch.nn.functional.silu(gate) * up, lp["down_w"])
+
+
+def _fused_mlp_qkv_call(heads, x, lp, lp_next, cfg):
+    """K4 for layer ``lp`` plus the next layer's input norm and qkv (JAX
+    ``_fused_mlp_qkv_call`` :1165): heads [B,qh,T,D], x [B,T,H] → (new
+    residual [B,T,H], raw qkv [B,T,n_qkv]), both cast back to x's dtype."""
+    b, t, h = x.shape
+    out, qkv = q8_mlp_qkv_fused(
+        _merge_heads(heads, cfg).reshape(b * t, -1).to(torch.bfloat16),
+        x.reshape(b * t, h), lp["post_ln"], lp_next["input_ln"], lp["o_w"],
+        lp["gate_up_w"], lp["down_w"], lp_next["qkv_w"], cfg.rms_eps)
+    return (out.reshape(b, t, h).to(x.dtype),
+            qkv.reshape(b, t, -1).to(x.dtype))
+
+
+def _fused_mlp_call(heads, x, lp, cfg):
+    """K4 without the next-layer stage, for the last layer (JAX
+    ``_fused_mlp_call`` :1149)."""
+    b, t, h = x.shape
+    out = q8_mlp_fused(
+        _merge_heads(heads, cfg).reshape(b * t, -1).to(torch.bfloat16),
+        x.reshape(b * t, h), lp["post_ln"], lp["o_w"], lp["gate_up_w"],
+        lp["down_w"], cfg.rms_eps)
+    return out.reshape(b, t, h).to(x.dtype)
 
 
 def _gqa_scores(q, k, cfg):
@@ -249,29 +307,95 @@ def decode_bias(kv: KVCache, slot: int, valid_from):
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)[:, None, :]
 
 
+def verify_bias(kv: KVCache, slots, t: int, valid_from):
+    """[B, T, S] f32: query row i of batch row b sees slots
+    [valid_from[b], slots[b] + i] (JAX ``qwen3_verify_step`` :1662)."""
+    dev = valid_from.device
+    j = torch.arange(kv.max_len, device=dev)[None, None, :]
+    i = torch.arange(t, device=dev)[None, :, None]
+    visible = (j >= valid_from[:, None, None]) & \
+        (j <= slots[:, None, None] + i)
+    return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+
+
+def _layer_stack(params, kv: KVCache, x, cos, sin, bias, write, cfg):
+    """The decoder layers over x [B, T, H] → the final-normed hidden
+    states. ``write(l, k, v)`` stores layer l's T new k/v rows in the
+    cache BEFORE attending, so each token sees itself."""
+    layers = params["layers"]
+    if "q8_fused" in params:
+        # JAX's megacall v2 branch: layer l's K4 call also emits layer
+        # l+1's qkv, so a layer costs K2 + K4; layer 0's qkv and the head
+        # are the only K1 launches
+        lp = _layer_params(layers, 0)
+        qkv = _proj(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp["qkv_w"])
+        for l in range(cfg.n_layers):
+            q, k, v = _qkv_post(qkv, lp, cfg, cos, sin)
+            write(l, k, v)
+            heads = _attend_cache(q, kv.k[l], kv.v[l], bias, cfg)
+            if l + 1 < cfg.n_layers:
+                lp_next = _layer_params(layers, l + 1)
+                x, qkv = _fused_mlp_qkv_call(heads, x, lp, lp_next, cfg)
+                lp = lp_next
+            else:
+                x = _fused_mlp_call(heads, x, lp, cfg)
+    else:
+        for l in range(cfg.n_layers):
+            lp = _layer_params(layers, l)
+            q, k, v = _qkv(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp, cfg,
+                           cos, sin)
+            write(l, k, v)
+            heads = _attend_cache(q, kv.k[l], kv.v[l], bias, cfg)
+            x = x + _proj(_merge_heads(heads, cfg), lp["o_w"])
+            x = x + _mlp(rms_norm(x, lp["post_ln"], cfg.rms_eps), lp)
+    return rms_norm(x, params["final_ln"], cfg.rms_eps)
+
+
+def _rope(positions, cfg, dtype):
+    """positions [B, T] → (cos, sin) each [B, T, 1, D]."""
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, dtype)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
 def qwen3_decode_step(params, kv: KVCache, token_embed, slot: int, position,
                       valid_from, cfg):
     """One generation step.
 
     token_embed [B, H]; ``slot`` (int) is the cache slot written; position
-    [B] the rope position; valid_from [B] the first valid slot. The new
-    k/v row is written at ``slot`` BEFORE attending, so the token sees
-    itself. Returns (logits [B, vocab] f32, the same cache updated in
-    place)."""
+    [B] the rope position; valid_from [B] the first valid slot. Returns
+    (logits [B, vocab] f32, the same cache updated in place)."""
     x = token_embed[:, None, :]
-    cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta,
-                            x.dtype)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    bias = decode_bias(kv, slot, valid_from)
-    layers = params["layers"]
-    for l in range(cfg.n_layers):
-        lp = _layer_params(layers, l)
-        q, k, v = _qkv(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp, cfg,
-                       cos, sin)
+    cos, sin = _rope(position[:, None], cfg, x.dtype)
+
+    def write(l, k, v):
         kv.k[l, :, slot] = k[:, 0]
         kv.v[l, :, slot] = v[:, 0]
-        heads = _attend_cache(q, kv.k[l], kv.v[l], bias, cfg)
-        x = x + _proj(_merge_heads(heads, cfg), lp["o_w"])
-        x = x + _mlp(rms_norm(x, lp["post_ln"], cfg.rms_eps), lp)
-    x = rms_norm(x, params["final_ln"], cfg.rms_eps)
+
+    x = _layer_stack(params, kv, x, cos, sin,
+                     decode_bias(kv, slot, valid_from), write, cfg)
     return _logits(params, x[:, 0, :], cfg), kv
+
+
+def qwen3_verify_step(params, kv: KVCache, token_embeds, slots, positions,
+                      valid_from, cfg):
+    """T tokens at once against the cache (the speculative verify pass):
+    the same weight traffic as one decode step, T logits back.
+
+    token_embeds [B, T, H]; slots [B] — token i of row b is written at
+    ``slots[b] + i``; positions [B, T] the rope positions; valid_from [B].
+    Returns (logits [B, T, vocab] f32, the same cache updated in place).
+    Rejected drafts leave stale rows above the accepted point; every mask
+    only exposes slots ``<= slots[b] + i``, so they stay invisible until
+    overwritten."""
+    b, t, _ = token_embeds.shape
+    cos, sin = _rope(positions, cfg, token_embeds.dtype)
+    rows = torch.arange(b, device=slots.device)[:, None]
+    cols = slots[:, None] + torch.arange(t, device=slots.device)[None, :]
+
+    def write(l, k, v):
+        kv.k[l][rows, cols] = k
+        kv.v[l][rows, cols] = v
+
+    x = _layer_stack(params, kv, token_embeds, cos, sin,
+                     verify_bias(kv, slots, t, valid_from), write, cfg)
+    return _logits(params, x, cfg), kv

@@ -9,6 +9,11 @@ their dtype). A q8_0 ``QuantTensor`` arrives as a ``(q, d)`` pair whose
 at ``t*(k/32)+b``); it is un-permuted here, in numpy, into the natural
 ``[..., n, k]`` int8 + ``[..., n, k/32]`` f32 :class:`Q8Weight` the CUDA
 kernel reads.
+
+A tree that went through the JAX ``fuse_qwen3_params_q8`` (``qwen3.py:657``)
+also lives in the TPU's perm space: o / gate_up (each half) / down have
+block-permuted OUTPUT channels and the norm weights are block-permuted.
+:func:`q8_fused_from_jax` undoes both and gives the port's fused tree.
 """
 
 import numpy as np
@@ -22,6 +27,37 @@ def block_unpermute(a: np.ndarray) -> np.ndarray:
     k = a.shape[-1]
     return (a.reshape(*a.shape[:-1], BLOCK, k // BLOCK)
             .swapaxes(-1, -2).reshape(a.shape))
+
+
+def _unpermute_axis(a: np.ndarray, axis: int) -> np.ndarray:
+    return np.moveaxis(block_unpermute(np.moveaxis(a, axis, -1)), -1, axis)
+
+
+def unpermute_out_channels(pair, halves: int = 1):
+    """Inverse of JAX ``permute_out_channels`` (``quant_matmul.py:542``) on a
+    numpy (q, d) pair: natural order along the n axis, each half apart."""
+    def undo(a):
+        parts = np.split(a, halves, axis=-2)
+        return np.concatenate([_unpermute_axis(p, -2) for p in parts],
+                              axis=-2)
+    return tuple(undo(np.asarray(a)) for a in pair)
+
+
+def q8_fused_from_jax(tree, device=None, dtype=torch.float32):
+    """A JAX ``fuse_qwen3_params_q8`` tree (as numpy) → the port's fused
+    tree: output channels of o / gate_up / down and the input / post /
+    final norm weights back in natural order, then the ``q8_fused``
+    marker (:func:`..qwen3.fuse_qwen3_params_q8`)."""
+    from .qwen3 import fuse_qwen3_params_q8
+    layers = dict(tree["layers"])
+    for key, halves in (("o_w", 1), ("gate_up_w", 2), ("down_w", 1)):
+        layers[key] = unpermute_out_channels(layers[key], halves)
+    for key in ("input_ln", "post_ln"):
+        layers[key] = block_unpermute(np.asarray(layers[key]))
+    out = {k: v for k, v in tree.items() if k != "q8_fused"}
+    out["layers"] = layers
+    out["final_ln"] = block_unpermute(np.asarray(tree["final_ln"]))
+    return fuse_qwen3_params_q8(to_torch(out, device, dtype))
 
 
 def _is_quant_pair(x) -> bool:
@@ -44,7 +80,10 @@ def to_torch(tree, device=None, dtype=torch.float32):
         return q8_from_jax(tree, device)
     if isinstance(tree, dict):
         return {k: to_torch(v, device, dtype) for k, v in tree.items()}
-    t = torch.from_numpy(np.array(tree))
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":        # ml_dtypes: exact through f32
+        a = a.astype(np.float32)
+    t = torch.from_numpy(a)
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

@@ -7,7 +7,8 @@ exact softmax over the whole cache row, probabilities normalised in f32
 (``max(l, 1e-30)`` clamp) then cast to the cache dtype for the mix, f32
 accumulation, output in the cache dtype. The CUDA kernel is
 ``csrc/flash_decode.cu`` (one block per (kv head, batch row); its note says
-what bounds it).
+what bounds it). It serves the decode step (T = 1) and the speculative
+verify step (T = spec_k + 1 query rows).
 
 GQA: query head ``h`` reads kv head ``h // group``. The int8-cache variant
 (scales commuted out of the contraction) is not ported yet.
@@ -18,7 +19,8 @@ CUDA tensors launch the kernel or raise.
 
 import torch
 
-MAX_ROWS = 16          # T * group query rows per kernel block
+MAX_ROWS = 18          # T * group query rows per kernel block (verify at
+                       # spec_k = 8: 9 rows x GQA group 2)
 HEAD_DIM = 128
 
 launches = 0
@@ -70,7 +72,8 @@ def _launch(q, k, v, bias):
         raise ValueError("flash_decode: all inputs must be on one CUDA device")
     if not all(a.is_contiguous() for a in (q, k, v, bias)):
         raise ValueError("flash_decode kernel takes contiguous inputs")
-    smem = (t * (qh // kh) * s + 8 * t * (qh // kh) * hd) * 4
+    rows = t * (qh // kh)
+    smem = (-(-rows * s // 4) * 4 + 8 * rows * hd) * 4
     if smem > 227 * 1024:
         raise ValueError(f"flash_decode: cache length {s} needs {smem} B of "
                          "shared memory (split-KV is not implemented)")

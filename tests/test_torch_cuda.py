@@ -78,7 +78,8 @@ def test_q8_matmul_kernel_refuses_bad_layouts(dev):
 
 
 @pytest.mark.parametrize("t,qh,kh,s", [(1, 16, 8, 17), (1, 4, 1, 300),
-                                       (2, 16, 8, 1024), (3, 8, 2, 65)])
+                                       (2, 16, 8, 1024), (3, 8, 2, 65),
+                                       (5, 16, 8, 777), (9, 16, 8, 1033)])
 def test_flash_decode_kernel_matches_plain(dev, t, qh, kh, s):
     g = torch.Generator(device=dev).manual_seed(s)
     bf = torch.bfloat16
@@ -101,6 +102,93 @@ def test_flash_decode_kernel_refuses_other_head_dims(dev):
     k = torch.zeros(1, 8, 2, 64, device=dev, dtype=bf)
     with pytest.raises(ValueError):
         tfd.flash_decode_attention(q, k, k, torch.zeros(1, 1, 8, device=dev))
+    # 10 query rows x group 2 = 20 > 18 rows per block
+    q = torch.zeros(1, 10, 16, 128, device=dev, dtype=bf)
+    k = torch.zeros(1, 8, 8, 128, device=dev, dtype=bf)
+    with pytest.raises(ValueError):
+        tfd.flash_decode_attention(q, k, k, torch.zeros(1, 10, 8, device=dev))
+
+
+QD, H, F, NQ = 512, 256, 384, 640     # K4 test widths (all % 32 == 0)
+
+
+def _chain(dev, m, seed, layers=None):
+    """Inputs of one K4 call; with ``layers`` the weights are views of
+    stacked [layers, n, k] tensors (layer 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def q8(n, k):
+        shape = (layers, n, k) if layers else (n, k)
+        w = tqm.Q8Weight(
+            torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8),
+            (torch.rand(*shape[:-1], k // 32, generator=g, device=dev)
+             * 2e-3 + 1e-3).half().float())
+        return tqm.layer(w, 1) if layers else w
+
+    def norm_w():
+        return (1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(bf)
+
+    xm = torch.randn(m, QD, generator=g, device=dev).to(bf)
+    resid = torch.randn(m, H, generator=g, device=dev).to(bf)
+    return (xm, resid, norm_w(), norm_w(), q8(H, QD), q8(2 * F, H),
+            q8(H, F), q8(NQ, H))
+
+
+# same bf16 products; f32 sums in another order can flip isolated bf16
+# ulps of the normed rows and of the gated product (measured up to 2.3e-3
+# at m = 16)
+K4_TOL = 5e-3
+
+
+@pytest.mark.parametrize("m", [1, 2, 9, 16])
+def test_q8_layer_fused_kernel_matches_plain(dev, m):
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=m)
+    before = tqm.fused_launches
+    out, got_qkv = tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv,
+                                        1e-6)
+    last = tqm.q8_mlp_fused(xm, resid, pw, o, gu, dn, 1e-6)
+    torch.cuda.synchronize()
+    assert tqm.fused_launches == before + 2
+    ref_out, ref_qkv = tqm.q8_mlp_qkv_fused_plain(xm, resid, pw, nw, o, gu,
+                                                  dn, qkv, 1e-6)
+    assert out.shape == (m, H) and got_qkv.shape == (m, NQ)
+    assert _rel_err(out, ref_out) < K4_TOL
+    assert _rel_err(got_qkv, ref_qkv) < K4_TOL
+    assert _rel_err(last, tqm.q8_mlp_fused_plain(xm, resid, pw, o, gu, dn,
+                                                 1e-6)) < K4_TOL
+
+
+def test_q8_layer_fused_kernel_reads_a_stacked_layer_in_place(dev):
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, 3, seed=7, layers=3)
+    assert o.q.data_ptr() == o.q.untyped_storage().data_ptr() + H * QD
+    out, got_qkv = tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv,
+                                        1e-6)
+    ref_out, ref_qkv = tqm.q8_mlp_qkv_fused_plain(xm, resid, pw, nw, o, gu,
+                                                  dn, qkv, 1e-6)
+    assert _rel_err(out, ref_out) < K4_TOL
+    assert _rel_err(got_qkv, ref_qkv) < K4_TOL
+
+
+def test_q8_layer_fused_kernel_refuses_what_it_does_not_take(dev):
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, 17, seed=3)
+    with pytest.raises(ValueError):                       # m > 16
+        tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv, 1e-6)
+    xm, resid = xm[:2], resid[:2]
+    bad = tqm.Q8Weight(torch.zeros(QD, H, dtype=torch.int8, device=dev).t(),
+                       o.d)                               # not contiguous
+    assert not bad.q.is_contiguous()
+    with pytest.raises(ValueError):
+        tqm.q8_mlp_fused(xm, resid, pw, bad, gu, dn, 1e-6)
+    with pytest.raises(TypeError):                        # f32 activations
+        tqm.q8_mlp_fused(xm.float(), resid, pw, o, gu, dn, 1e-6)
+    with pytest.raises(TypeError):                        # f16 scales
+        tqm.q8_mlp_fused(xm, resid, pw, o, tqm.Q8Weight(gu.q, gu.d.half()),
+                         dn, 1e-6)
+    with pytest.raises(ValueError):                       # mixed devices
+        tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn,
+                             tqm.Q8Weight(qkv.q.cpu(), qkv.d.cpu()), 1e-6)
 
 
 @pytest.mark.parametrize("t", [1, 63, 65, 130])

@@ -7,7 +7,8 @@
   structure, and its CTC text equals the JAX engine's on the same
   checkpoint and WAV (float32 compute on both).
 * Settings outside the ported slice raise ``NotImplementedError``.
-* A subprocess runs a tiny port transcription without importing jax.
+* A subprocess runs a tiny port transcription with the default decode
+  (fused chain, CTC-draft speculation) without importing jax.
 """
 
 import base64
@@ -157,7 +158,7 @@ def test_transcribe_structure_and_ctc_text_match_jax(jax_ckpt, wav):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(speculative=True), dict(llm_weight_format="int8"),
+    dict(llm_weight_format="bf16"), dict(llm_weight_format="int8"),
     dict(llm_weight_format="auto"), dict(kv_cache_dtype="int8"),
     dict(mesh_shape={"dp": 1, "tp": 2}), dict(ctc_beam_size=4)])
 def test_settings_outside_the_slice_raise(kwargs):
@@ -197,9 +198,16 @@ eng = create_asr_engine(ckpt, verbose=False, compute_dtype="float32",
                         device="cpu", segment_pad_seconds=2.0, n_predict=4,
                         prefill_buckets=(64,), hotwords_path=os.path.join(
                             root, "hot.txt"))
+spec_generate, states = eng.models.spec_generate, []
+def recording(state, *args, **kw):            # the default decode speculates
+    states.append(state)
+    return spec_generate(state, *args, **kw)
+eng.models.spec_generate = recording
 res = eng.transcribe(wav, verbose=False, temperature=0.0)
+rounds = int(states[-1].rounds[0]) if states else 0
 eng.cleanup()
-assert isinstance(res.text, str) and res.ctc_text
+assert isinstance(res.text, str) and res.ctc_text and rounds > 0
+assert "fun_asr_gguf_tpu_torch.models.speculative" in sys.modules
 print("JAX_LOADED", "jax" in sys.modules)
 """
 
