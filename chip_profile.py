@@ -9,9 +9,12 @@ with ``torch.profiler`` after an unprofiled warm-up run of that window:
 - encode (frontend + 70 SANM layers + adaptor) of the 60 s clip;
 - the CTC head (5 blocks + 60515-way projection + device argmax);
 - prefill of a 200-token prompt in the 256 bucket;
-- 16 decode steps of the engine's default fused path (K4), greedy and at
+- 16 decode steps of q8_0 weights on the fused path (K4), greedy and at
   T = 0.4, and 16 greedy steps of the unfused path on the same weights;
-- 16 verify rounds of 9 rows (spec_k = 8) with an empty draft, greedy.
+- 16 verify rounds of 9 rows (spec_k = 8) with an empty draft, greedy,
+  q8_0 fused;
+- 16 decode steps of the engine's default (per-channel int8 weights and
+  head, bf16 cache), greedy.
 
 For each window it prints the wall time, the device busy time (the union
 of kernel and memcpy intervals on the card), the idle share, and the
@@ -89,14 +92,16 @@ def profile_window(label, fn, setup=lambda: None):
 
 
 def main():
-    from fun_asr_gguf_tpu.audio import load_audio
+    from fun_asr_gguf_tpu_torch.audio import load_audio
     from fun_asr_gguf_tpu_torch import create_asr_engine
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
 
     chip_smoke.phase_device()
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as root:
         ckpt, wav, _cfg = chip_smoke.write_inputs(root)
-        engine = create_asr_engine(ckpt, verbose=False, device="cuda")
+        engine = create_asr_engine(ckpt, verbose=False,
+                                   llm_weight_format="q8_0")
+        default = create_asr_engine(ckpt, verbose=False)
         try:
             m = engine.models
             audio = load_audio(wav, 16000)
@@ -116,6 +121,7 @@ def main():
                             chunk_len=DECODE_STEPS,
                             stop_tokens=m.stop_tokens)
                 return run
+            d = default.models
 
             def verify(state):
                 return m.spec_generate(state, draft, 0.0, 1.0, 50,
@@ -137,6 +143,9 @@ def main():
                 (f"verify {DECODE_STEPS} rounds of 9 rows greedy, fused",
                  verify, lambda: m.spec_prepare(m.prefill(prompt,
                                                           rng_seed=0))),
+                (f"decode {DECODE_STEPS} steps greedy, int8 weights, bf16 KV",
+                 decode(0.0, d.llm_params),
+                 lambda: d.prefill(prompt, rng_seed=0)),
             ]
             reports = []
             for label, fn, setup in windows:
@@ -145,6 +154,7 @@ def main():
                 reports.append(report)
         finally:
             engine.cleanup()
+            default.cleanup()
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "profile.txt")
     os.makedirs(os.path.dirname(out), exist_ok=True)

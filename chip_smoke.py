@@ -6,24 +6,31 @@ Phases, one line each (any failure raises and exits non-zero):
 
 1. device: torch's device name, and ``nvidia-smi``'s name and power limit;
 2. kernel build from ``fun_asr_gguf_tpu_torch/csrc`` (seconds);
-3. every kernel of the main path against its plain PyTorch version on the
-   card, at the shapes the main path gives it: max-abs and relative error
-   against the stated tolerance, and both median device times (CUDA
-   events around one call, with the queue kept busy while the host
-   enqueues it, so the time excludes the host's launch cost): K1 at
-   decode (m = 1), verify (m = 9) and prefill rows, K2 at T = 1 and at the
-   verify step's T = 9, K3, and K4 (the fused layer chain,
-   with and without the next-layer qkv stage) at m = 1 and m = 9 on layer
-   views of stacked [28, n, k] weights;
+3. every kernel of the main paths against its plain PyTorch version on the
+   card, at the shapes those paths give it: max-abs and relative error
+   against the stated tolerance, both median device times (CUDA events
+   around one call, with the queue kept busy while the host enqueues it,
+   so the time excludes the host's launch cost), the time of one PyTorch
+   call that computes the same function where there is one
+   (``scaled_dot_product_attention`` for K2 and K3) and the bound (the
+   larger of bytes over 3.35 TB/s and operations over the input type's
+   peak): K1 at decode (m = 1), verify (m = 9) and prefill rows, K2 and
+   K2-i8 at T = 1 and at the verify step's T = 9 on stacked 28-layer
+   caches, K3, and K4 (the fused layer chain, with and without the
+   next-layer qkv stage) at m = 1 and m = 9 on layer views of stacked
+   [28, n, k] weights;
 4. end-to-end transcription through ``create_asr_engine(...).transcribe()``
    of a 60 s synthetic clip on a full-width random checkpoint (70-layer
-   SANM encoder + Qwen3-0.6B q8_0) with the engine's defaults (fused
-   decode, CTC-draft speculation with its guardrail): greedy, at the
-   default temperature, and with the guardrail off (``spec_min_accept=0``)
-   so verify rounds run across the whole clip; stage timings, verify
-   rounds and each kernel's launch count from those runs; the launches of
-   one decode step and of one verify round; and ms per decode step, fused
-   against unfused, and per verify round.
+   SANM encoder + Qwen3-0.6B): the JAX facade's defaults (``auto`` →
+   per-channel int8 weights and head, bf16 cache, CTC-draft speculation
+   with its guardrail), greedy; the int8 KV cache (K2-i8), greedy and with
+   the guardrail off (``spec_min_accept=0``) so verify rounds run across
+   the whole clip; and q8_0 weights (fused decode, K4), greedy, at the
+   default temperature and with the guardrail off. First the card paths
+   of those engines against the CPU f32 path on small inputs; then stage
+   timings, verify rounds and each kernel's launch count per path; the
+   launches of one decode step and of one verify round per engine; and ms
+   per decode step and per verify round, engine against engine in turns.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -59,10 +66,14 @@ K1_SHAPES = [
 # relative tolerances on max|err| / max|ref|, with the reason
 K1_TOL = 1e-4     # same bf16 products, f32 sums in another order
 K2_TOL = 2e-2     # bf16 output: __expf and sum order move results by ~1 ulp
+                  # (K2 and K2-i8)
 K3_TOL = 2e-2     # bf16 P.V operands vs the plain f32 softmax, bf16 output
 K4_TOL = 5e-3     # same bf16 products; f32 sums in another order flip
                   # isolated bf16 ulps of the normed rows and gated product
 LAYERS = 28       # Qwen3-0.6B: K4 rows cycle the layers, so L2 is cold
+# the bound of a kernel: NVIDIA's H100 SXM data sheet at 700 W (dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg):
@@ -92,6 +103,19 @@ def time_ms(fn, iters=20, warmup=3):
 
 SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's clock: longer than any
                            # plain version's host-side enqueue
+
+
+def bound(n_bytes, n_ops, kind="bf16"):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for the input type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S[kind]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(a.numel() * a.element_size() for a in tensors)
 
 
 def compare(name, got, ref, tol):
@@ -151,51 +175,18 @@ def phase_kernels(dev):
         worst = max(worst, err)
         ms = time_ms(lambda: quant_matmul.q8_matmul(x, w))
         pms = time_ms(lambda: quant_matmul.q8_matmul_plain(x, w))
+        b = bound(nbytes(x, q, d) + m * n * 4, 2 * m * n * k)
         log(f"[3] K1 q8_matmul {name:14s} [{m}x{k}]x[{n}x{k}]^T: max_abs_err "
             f"{err:.3e} rel {rel:.2e} (tol {K1_TOL:g}) kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms")
+            f"plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
         if name == "lm_head m=1":
-            rows["q8_matmul"] = dict(ms=ms, plain_ms=pms)
+            rows["q8_matmul"] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                     **b)
         del x, q, d, w
     rows["q8_matmul"]["max_abs_err"] = worst
 
-    # K2 over one layer of a stacked 28-layer cache (timed calls cycle the
-    # layers, so the cache is cold in L2 as in a decode step): the decode
-    # step (T = 1; S = 256-token bucket + 512 new tokens) and the verify
-    # step (T = 9 rows for spec_k = 8; row i sees slots <= base + i)
-    worst = 0.0
-    for t, s_len in ((1, 768), (1, 1024), (9, 777), (9, 1033)):
-        qh, kh, hd = 16, 8, 128
-        q = randn(1, t, qh, hd) * (hd ** -0.5)
-        k = randn(LAYERS, 1, s_len, kh, hd)
-        v = randn(LAYERS, 1, s_len, kh, hd)
-        j = torch.arange(s_len, device=dev)
-        i = torch.arange(t, device=dev)[:, None]
-        bias = torch.where((j >= 40) & (j <= s_len - 100 - t + i), 0.0,
-                           -1e30).to(torch.float32)[None].contiguous()
-        ln = [0]
-
-        def call(fn, q=q, k=k, v=v, bias=bias, ln=ln):
-            ln[0] = (ln[0] + 1) % LAYERS
-            return fn(q, k[ln[0]], v[ln[0]], bias)
-
-        err, rel = compare(f"flash_decode T={t} S={s_len}",
-                           flash_decode.flash_decode_attention(q, k[0], v[0],
-                                                               bias),
-                           flash_decode.flash_decode_plain(q, k[0], v[0],
-                                                           bias),
-                           K2_TOL)
-        worst = max(worst, err)
-        ms = time_ms(lambda: call(flash_decode.flash_decode_attention))
-        pms = time_ms(lambda: call(flash_decode.flash_decode_plain))
-        log(f"[3] K2 flash_decode B=1 T={t} qh=16 kh=8 hd=128 S={s_len}: "
-            f"max_abs_err {err:.3e} rel {rel:.2e} (tol {K2_TOL:g}) kernel "
-            f"{ms:.4f} ms plain {pms:.4f} ms")
-        if (t, s_len) == (1, 768):
-            rows["flash_decode"] = dict(ms=ms, plain_ms=pms)
-        del k, v
-    rows["flash_decode"]["max_abs_err"] = worst
-
+    rows.update(phase_k2(dev, gen))
     rows["q8_layer_fused"] = phase_k4(dev, gen)
 
     # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
@@ -211,10 +202,17 @@ def phase_kernels(dev):
                        K3_TOL)
     ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, bias))
     pms = time_ms(lambda: flash_attention.flash_attention_plain(q, k, v, bias))
+    # yardstick: the same additive key bias as a bf16 float mask
+    mask_bf = bias.to(torch.bfloat16)[:, None, :]
+    lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask_bf, scale=1.0))
+    b3 = bound(nbytes(q, k, v, bias) + q.numel() * 2, 4 * bh * t * t * dd)
     log(f"[3] K3 flash_attention BH=4 T=1001 D=128: max_abs_err {err:.3e} "
         f"rel {rel:.2e} (tol {K3_TOL:g}) kernel {ms:.4f} ms plain "
-        f"{pms:.4f} ms")
-    rows["flash_attention"] = dict(ms=ms, plain_ms=pms, max_abs_err=err)
+        f"{pms:.4f} ms sdpa {lms:.4f} ms bound {b3['bound_ms']:.4f} ms "
+        f"({b3['bound_by']})")
+    rows["flash_attention"] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
+                                   library_ms=lms, **b3)
     torch.cuda.synchronize()
     return rows
 
@@ -268,14 +266,98 @@ def phase_k4(dev, gen):
             worst = max(worst, err)
             ms = time_ms(lambda: call(kern, xm, res, with_qkv))
             pms = time_ms(lambda: call(plain, xm, res, with_qkv))
+            ws = args(0, with_qkv)[1 + with_qkv:]
+            b = bound(nbytes(xm, res, *norms[0, :1 + with_qkv],
+                             *(a for w in ws for a in w))
+                      + m * (1024 + (4096 if with_qkv else 0)) * 4,
+                      2 * m * sum(w.q.numel() for w in ws))
             log(f"[3] {name} m={m} (o 1024x2048, gate_up 6144x1024, down "
                 f"1024x3072{', qkv 4096x1024' if with_qkv else ''}): "
                 f"max_abs_err {err:.3e} rel {rel:.2e} (tol {K4_TOL:g}) "
-                f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+                f"kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
             if with_qkv and m == 1:
-                row = dict(ms=ms, plain_ms=pms)
+                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
     row["max_abs_err"] = worst
     return row
+
+
+def phase_k2(dev, gen):
+    """K2 (bf16 cache) and K2-i8 (int8 cache, bf16 scales) over one layer
+    of a stacked 28-layer cache (timed calls cycle the layers, so the
+    cache is cold in L2 as in a decode step): the decode step (T = 1; S =
+    256-token bucket + 512 new tokens, and 1024) and the verify step (T = 9
+    rows for spec_k = 8; row i sees slots <= base + i). The yardstick is
+    ``scaled_dot_product_attention`` on the bf16 cache (GQA, the bias as a
+    float mask); no single PyTorch call takes an int8 cache with scales."""
+    from fun_asr_gguf_tpu_torch.models.qwen3 import _kv_quantize
+    from fun_asr_gguf_tpu_torch.ops import flash_decode as fd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, hd = 16, 8, 128
+    rows, worst = {}, {"flash_decode": 0.0, "flash_decode_i8": 0.0}
+    for t, s_len in ((1, 768), (1, 1024), (9, 777), (9, 1033)):
+        q = (torch.randn(1, t, qh, hd, generator=gen, device=dev)
+             * (hd ** -0.5)).to(torch.bfloat16)
+        j = torch.arange(s_len, device=dev)
+        i = torch.arange(t, device=dev)[:, None]
+        bias = torch.where((j >= 40) & (j <= s_len - 100 - t + i), 0.0,
+                           -1e30).to(torch.float32)[None].contiguous()
+        mask_bf = bias.to(torch.bfloat16)[:, None]
+        qt = q.transpose(1, 2)
+        io_bytes = nbytes(q, bias) + q.numel() * 2      # q, bias in; out
+        ops = 4 * t * qh * s_len * hd
+        for name in ("flash_decode", "flash_decode_i8"):
+            k = torch.randn(LAYERS, 1, s_len, kh, hd, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            v = torch.randn(LAYERS, 1, s_len, kh, hd, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            if name == "flash_decode":
+                cache = (k, v)
+                ln = [0]
+
+                def lib_call(k=k, v=v, ln=ln, qt=qt, mask_bf=mask_bf):
+                    ln[0] = (ln[0] + 1) % LAYERS
+                    return sdpa(qt, k[ln[0]].transpose(1, 2),
+                                v[ln[0]].transpose(1, 2), attn_mask=mask_bf,
+                                scale=1.0, enable_gqa=True)
+                library = time_ms(lib_call)
+                b = bound(io_bytes + nbytes(k[0], v[0]), ops)
+            else:
+                (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+                cache = (kq, vq, ks, vs)
+                library = None
+                b = bound(io_bytes + nbytes(kq[0], vq[0], ks[0], vs[0]), ops,
+                          "int8")
+            del k, v
+            ln = [0]
+
+            def call(fn, cache=cache, ln=ln, q=q, bias=bias):
+                ln[0] = (ln[0] + 1) % LAYERS
+                l = ln[0]
+                return fn(q, cache[0][l], cache[1][l], bias,
+                          *(c[l] for c in cache[2:]))
+
+            got = fd.flash_decode_attention(q, *(c[0] for c in cache[:2]),
+                                            bias, *(c[0] for c in cache[2:]))
+            ref = fd.flash_decode_plain(q, *(c[0] for c in cache[:2]), bias,
+                                        *(c[0] for c in cache[2:]))
+            err, rel = compare(f"{name} T={t} S={s_len}", got, ref, K2_TOL)
+            worst[name] = max(worst[name], err)
+            ms = time_ms(lambda: call(fd.flash_decode_attention))
+            pms = time_ms(lambda: call(fd.flash_decode_plain))
+            lib = f" sdpa {library:.4f} ms" if library is not None else ""
+            log(f"[3] {'K2' if name == 'flash_decode' else 'K2-i8'} {name} "
+                f"B=1 T={t} qh=16 kh=8 hd=128 S={s_len}: max_abs_err "
+                f"{err:.3e} rel {rel:.2e} (tol {K2_TOL:g}) kernel {ms:.4f} ms "
+                f"plain {pms:.4f} ms{lib} bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
+            if (t, s_len) == (1, 1024):
+                rows[name] = dict(ms=ms, plain_ms=pms, library_ms=library,
+                                  **b)
+            del cache, got, ref
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = err
+    return rows
 
 
 # (name, CUDA source, the TPU kernel it replaces)
@@ -284,6 +366,8 @@ KERNELS = [
      "fun_asr_gguf_tpu/ops/quant_matmul.py:176"),
     ("flash_decode", "fun_asr_gguf_tpu_torch/csrc/flash_decode.cu",
      "fun_asr_gguf_tpu/ops/flash_decode.py:132"),
+    ("flash_decode_i8", "fun_asr_gguf_tpu_torch/csrc/flash_decode.cu",
+     "fun_asr_gguf_tpu/ops/flash_decode.py:132 (k_scale/v_scale :80-117)"),
     ("flash_attention", "fun_asr_gguf_tpu_torch/csrc/flash_attention.cu",
      "fun_asr_gguf_tpu/ops/flash_attention.py:90"),
     ("q8_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8_layer_fused.cu",
@@ -319,8 +403,8 @@ def _cos(a, b):
 def write_inputs(root):
     """Full-width random checkpoint, a 60515-entry tokens.txt, a 60 s WAV."""
     import base64
-    from fun_asr_gguf_tpu.audio import write_wav
-    from fun_asr_gguf_tpu.models.config import HybridConfig
+    from fun_asr_gguf_tpu_torch.audio import write_wav
+    from fun_asr_gguf_tpu_torch.models.config import HybridConfig
     from fun_asr_gguf_tpu_torch.models.loaders import write_random_checkpoint
     ckpt = os.path.join(root, "ckpt")
     t0 = time.perf_counter()
@@ -342,71 +426,103 @@ def write_inputs(root):
     return ckpt, wav, cfg
 
 
-def reference_check(engine, ckpt):
+def cpu_f32(tree):
+    """A parameter tree on the card → the same weights on the CPU, float
+    tensors in f32 (int8 values and q8_0 bytes as they are)."""
+    if isinstance(tree, dict):
+        return {k: cpu_f32(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [cpu_f32(a) for a in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    t = tree.cpu()
+    return t.float() if t.is_floating_point() else t
+
+
+def reference_check(engines, ckpt):
     """The card's kernel path (bf16) against the CPU plain path (f32) on
-    small inputs of the same full-width weights: encoder, CTC logits,
-    prefill logits, two teacher-forced fused decode steps and one fused
-    verify step of 9 tokens (spec_k = 8)."""
+    small inputs, the CPU path on the same weights as the card's: the
+    encoder and CTC logits; then per decoder (the default int8 weights, the
+    int8 KV cache, bf16 weights and the fused q8_0 weights) prefill
+    logits, two teacher-forced decode steps and one verify step of 9
+    tokens (spec_k = 8); the bf16 decoder gives prefill logits only."""
+    from fun_asr_gguf_tpu_torch.frontend import frontend_constants
     from fun_asr_gguf_tpu_torch.models import (adaptor, audio_encoder,
                                                generate, loaders, qwen3)
-    from fun_asr_gguf_tpu_torch.frontend import frontend_constants
-    m = engine.models
-    cpu = torch.device("cpu")
+    m = engines["int8"].models
+    cpu, dev = torch.device("cpu"), m.device
     t0 = time.perf_counter()
-    cfg, enc, ada, ctc, llm, _ = loaders.load_checkpoint(ckpt, cpu,
-                                                         torch.float32)
-    llm = qwen3.fuse_qwen3_params_q8(qwen3.pack_qwen3_params(
-        qwen3.quantize_lm_head(llm, cfg.llm)))
-    if "q8_fused" not in m.llm_params:
-        raise RuntimeError("the engine's default params are not fused")
+    cfg, enc, ada, ctc, _, _ = loaders.load_checkpoint(ckpt, cpu,
+                                                       torch.float32)
+    dense = loaders.load_checkpoint(ckpt, dev, torch.bfloat16,
+                                    llm_keep_quantized=False)[4]
+    decoders = [("int8", m.llm_params, False, 3),
+                ("int8 kv8", engines["int8 kv8"].models.llm_params,
+                 True, 3),
+                ("bf16", qwen3.pack_qwen3_params(dense), False, 0),
+                ("q8_0 fused", engines["q8_0"].models.llm_params, False, 3)]
+    if not (isinstance(m.llm_params["layers"]["qkv_w"],
+                       qwen3.Int8Weight) and "lm_head_i8" in m.llm_params):
+        raise RuntimeError("the default engine does not hold int8 weights "
+                           "and the int8 head")
+    if "q8_fused" not in engines["q8_0"].models.llm_params:
+        raise RuntimeError("the q8_0 engine's params are not fused")
     rng = np.random.default_rng(1)
     audio = (0.05 * rng.normal(size=(1, 3 * 16000))).astype(np.float32)
     n = torch.tensor([audio.shape[1]])
     prompt_ids = torch.from_numpy(rng.integers(0, 256, size=(1, 48)))
     verify_ids = torch.from_numpy(rng.integers(0, 256, size=(1, 9)))
-    outs = {}
-    for name, dev, dtype, p_enc, p_ada, p_ctc, p_llm in (
-            ("ref", cpu, torch.float32, enc, ada, ctc, llm),
-            ("card", m.device, m._compute_dtype, m.encoder_params,
-             m.adaptor_params, m.ctc_params, m.llm_params)):
+    outs = {"ref": {}, "card": {}}
+    for side, d, dtype, p_enc, p_ada, p_ctc in (
+            ("ref", cpu, torch.float32, enc, ada, ctc),
+            ("card", dev, m._compute_dtype, m.encoder_params,
+             m.adaptor_params, m.ctc_params)):
         with torch.inference_mode():
             e, embd, _ = audio_encoder.audio_encoder_forward(
                 {"encoder": p_enc, "adaptor": p_ada},
-                frontend_constants(m.audio_cfg.frontend, dev),
-                torch.from_numpy(audio).to(dev), n.to(dev), m.audio_cfg,
+                frontend_constants(m.audio_cfg.frontend, d),
+                torch.from_numpy(audio).to(d), n.to(d), m.audio_cfg,
                 compute_dtype=dtype)
-            logits = adaptor.ctc_logits_forward(p_ctc, e.to(dtype), cfg.ctc)
-            emb = qwen3.embed_tokens(p_llm, prompt_ids.to(dev))
-            mask = torch.ones(1, 48, device=dev)
-            mask[:, :8] = 0
-            state = generate.prefill_init(
-                p_llm, emb, mask, torch.Generator(device=dev).manual_seed(0),
-                cfg.llm, max_len=64)
-            steps = [state.logits]
-            for k, tok in enumerate((11, 22)):
-                lg, _ = qwen3.qwen3_decode_step(
-                    p_llm, state.kv, qwen3.embed_tokens(
-                        p_llm, torch.tensor([tok], device=dev)), 48 + k,
-                    state.prompt_len + k, state.valid_from, cfg.llm)
-                steps.append(lg)
-            vlg, _ = qwen3.qwen3_verify_step(
-                p_llm, state.kv, qwen3.embed_tokens(p_llm,
-                                                    verify_ids.to(dev)),
-                torch.tensor([50], device=dev),
-                state.prompt_len[:, None] + 2 + torch.arange(9, device=dev),
-                state.valid_from, cfg.llm)
-        outs[name] = dict(encoder=e, embd=embd, ctc_logits=logits,
-                          **{f"decode{k}": s for k, s in enumerate(steps)},
-                          verify=vlg)
+            outs[side].update(encoder=e, embd=embd,
+                              ctc_logits=adaptor.ctc_logits_forward(
+                                  p_ctc, e.to(dtype), cfg.ctc))
+    for label, p_card, kv8, n_steps in decoders:
+        for side, d, p_llm in (("ref", cpu, cpu_f32(p_card)),
+                               ("card", dev, p_card)):
+            with torch.inference_mode():
+                emb = qwen3.embed_tokens(p_llm, prompt_ids.to(d))
+                mask = torch.ones(1, 48, device=d)
+                mask[:, :8] = 0
+                state = generate.prefill_init(
+                    p_llm, emb, mask, torch.Generator(device=d).manual_seed(0),
+                    cfg.llm, max_len=64, kv_int8=kv8)
+                got = {f"{label} prefill": state.logits}
+                if n_steps:
+                    for k, tok in enumerate((11, 22)):
+                        emb = qwen3.embed_tokens(
+                            p_llm, torch.tensor([tok], device=d))
+                        got[f"{label} decode{k + 1}"] = \
+                            qwen3.qwen3_decode_step(
+                                p_llm, state.kv, emb, 48 + k,
+                                state.prompt_len + k, state.valid_from,
+                                cfg.llm)[0]
+                    got[f"{label} verify"] = qwen3.qwen3_verify_step(
+                        p_llm, state.kv, qwen3.embed_tokens(
+                            p_llm, verify_ids.to(d)),
+                        torch.tensor([50], device=d),
+                        state.prompt_len[:, None] + 2
+                        + torch.arange(9, device=d),
+                        state.valid_from, cfg.llm)[0]
+            outs[side].update(got)
+    del dense, decoders
     worst = 1.0
     parts = []
     for key in outs["ref"]:
         c = _cos(outs["ref"][key], outs["card"][key])
         worst = min(worst, c)
         parts.append(f"{key} {c:.6f}")
-    log(f"[4] reference (card bf16 kernels vs CPU f32 plain, small inputs; "
-        f"decode and verify fused): cosine {', '.join(parts)} (min "
-        f"{worst:.6f}, tol > {REF_COS}) in {time.perf_counter() - t0:.1f} s")
+    log(f"[4] reference (card bf16 kernels vs CPU f32 plain, same weights, "
+        f"small inputs): cosine {', '.join(parts)} (min {worst:.6f}, tol > "
+        f"{REF_COS}) in {time.perf_counter() - t0:.1f} s")
     if not worst > REF_COS:
         raise RuntimeError(f"card path disagrees with the CPU reference: "
                            f"min cosine {worst:.6f}")
@@ -437,82 +553,121 @@ def count_verify_rounds(models):
     return stats
 
 
+# a guardrail-off run of the 60 s clip verifies until n_predict (512 on
+# random weights, PR 2's runs); far fewer rounds mean the guardrail held
+MIN_VERIFY_ROUNDS = 64
+
+# The engines of phase 4: how each is built, its transcriptions
+# (temperature, spec_min_accept; None keeps the engine's 1.35), and the
+# launches one decode step and one verify round must make (28 layers)
+ENGINES = [
+    ("int8", {}, [(0.0, None)],
+     {"q8_matmul": 0, "flash_decode": 28, "flash_decode_i8": 0,
+      "flash_attention": 0, "q8_layer_fused": 0}),
+    ("int8 kv8", {"kv_cache_dtype": "int8"}, [(0.0, None), (0.4, 0.0)],
+     {"q8_matmul": 0, "flash_decode": 0, "flash_decode_i8": 28,
+      "flash_attention": 0, "q8_layer_fused": 0}),
+    ("q8_0", {"llm_weight_format": "q8_0"},
+     [(0.0, None), (0.4, None), (0.4, 0.0)],
+     {"q8_matmul": 2, "flash_decode": 28, "flash_decode_i8": 0,
+      "flash_attention": 0, "q8_layer_fused": 28}),
+]
+
+
 def phase_e2e(dev):
     from fun_asr_gguf_tpu_torch import create_asr_engine
     from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
                                             quant_matmul)
     mods = {"q8_matmul": (quant_matmul, "launches"),
             "flash_decode": (flash_decode, "launches"),
+            "flash_decode_i8": (flash_decode, "launches_i8"),
             "flash_attention": (flash_attention, "launches"),
             "q8_layer_fused": (quant_matmul, "fused_launches")}
+    launches = dict.fromkeys(mods, 0)
+    engines = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         ckpt, wav, cfg = write_inputs(root)
-        t0 = time.perf_counter()
-        engine = create_asr_engine(ckpt, verbose=False, device="cuda")
-        c = engine.models.config
-        log(f"[4] engine init (load, q8_0 head, fuse, warm-up): "
-            f"{time.perf_counter() - t0:.1f} s; stop ids "
-            f"{engine.models.stop_tokens}; speculative={c.speculative} "
-            f"spec_k={c.spec_k} spec_min_accept={c.spec_min_accept} "
-            f"fuse_projections={c.fuse_projections}")
         try:
-            reference_check(engine, ckpt)
-            runs = [(0.0, c.spec_min_accept), (0.4, c.spec_min_accept),
-                    (0.4, 0.0)]
-            spec = count_verify_rounds(engine.models)
-            _reset(mods)
-            results = []
-            for temp, min_acc in runs:
-                n_tok = [0]
-
-                def count(_piece, n_tok=n_tok):
-                    n_tok[0] += 1
-
-                def reset(n_tok=n_tok):
-                    n_tok[0] = 0
-                c.spec_min_accept = min_acc
-                spec.update(rounds=0, tokens=0)
-                torch.cuda.synchronize()
+            for name, kwargs, _, _ in ENGINES:
                 t0 = time.perf_counter()
-                res = engine.transcribe(wav, verbose=False, temperature=temp,
-                                        on_stream=count,
-                                        on_stream_reset=reset)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                results.append((temp, min_acc, res, n_tok[0], wall,
-                                dict(spec)))
-            launches = _counts(mods)
-            del engine.models.spec_generate   # back to the unwrapped method
-            c.spec_min_accept = runs[0][1]
-            for temp, min_acc, res, n_tok, wall, spec in results:
-                t = res.timings
-                check_result(res)
-                per_round = spec["tokens"] / max(spec["rounds"], 1)
-                log(f"[4] transcribe T={temp} spec_min_accept={min_acc}: "
-                    f"encode {t.encode*1e3:.1f} ms, ctc {t.ctc*1e3:.1f} ms, "
-                    f"inject (prefill) {t.inject*1e3:.1f} ms, generate "
-                    f"{n_tok} pieces in {t.llm_generate*1e3:.1f} ms "
-                    f"({n_tok / max(t.llm_generate, 1e-9):.1f} pieces/s), "
-                    f"verify rounds {spec['rounds']} emitting "
-                    f"{spec['tokens']} tokens ({per_round:.3f} per round), "
-                    f"align {t.align*1e3:.2f} ms, total {t.total:.3f} s "
-                    f"(wall {wall:.3f} s); ctc chars {len(res.ctc_text)}, "
-                    f"text chars {len(res.text)}, segments "
-                    f"{len(res.segments)}")
-            if results[-1][-1]["rounds"] < 64:
-                raise RuntimeError("the spec_min_accept=0 run ran only "
-                                   f"{results[-1][-1]['rounds']} verify "
-                                   "rounds")
-            log(f"[4] kernel launches in the three transcriptions: "
-                f"{launches}")
+                # the facade as a user calls it: the card is the default
+                engines[name] = create_asr_engine(ckpt, verbose=False,
+                                                  **kwargs)
+                c = engines[name].models.config
+                log(f"[4] engine {name} {kwargs}: init (load, quantize, "
+                    f"warm-up) {time.perf_counter() - t0:.1f} s; weight "
+                    f"format {engines[name].models.weight_format}, kv "
+                    f"{c.kv_cache_dtype}, speculative={c.speculative} "
+                    f"spec_k={c.spec_k} spec_min_accept={c.spec_min_accept}"
+                    f" fuse_projections={c.fuse_projections}")
+            reference_check(engines, ckpt)
+            for name, _, runs, _ in ENGINES:
+                path = transcribe_runs(engines[name], name, wav, runs, mods)
+                for k, v in path.items():
+                    launches[k] += v
             missing = [k for k, v in launches.items() if v <= 0]
             if missing:
                 raise RuntimeError(f"main path never launched {missing}")
-            step_launches(engine, mods, cfg.llm.n_layers)
-            decode_step_ms(engine)
+            for name, _, _, want in ENGINES:
+                step_launches(engines[name], name, mods, want)
+            decode_step_ms(engines)
         finally:
-            engine.cleanup()
+            for eng in engines.values():
+                eng.cleanup()
     return launches
+
+
+def transcribe_runs(engine, name, wav, runs, mods):
+    """The 60 s clip through ``engine.transcribe`` once per (temperature,
+    spec_min_accept); logs each run and returns the kernel launches of
+    them all, counted from 0."""
+    c = engine.models.config
+    default_min = c.spec_min_accept
+    spec = count_verify_rounds(engine.models)
+    results = []
+    _reset(mods)
+    try:
+        for temp, min_acc in runs:
+            n_tok = [0]
+
+            def count(_piece, n_tok=n_tok):
+                n_tok[0] += 1
+
+            def reset(n_tok=n_tok):
+                n_tok[0] = 0
+            c.spec_min_accept = default_min if min_acc is None else min_acc
+            spec.update(rounds=0, tokens=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.transcribe(wav, verbose=False, temperature=temp,
+                                    on_stream=count, on_stream_reset=reset)
+            torch.cuda.synchronize()
+            results.append((temp, c.spec_min_accept, res, n_tok[0],
+                            time.perf_counter() - t0, dict(spec)))
+        counts = _counts(mods)
+    finally:
+        del engine.models.spec_generate    # back to the unwrapped method
+        c.spec_min_accept = default_min
+    for temp, min_acc, res, n_tok, wall, st in results:
+        t = res.timings
+        check_result(res)
+        per_round = st["tokens"] / max(st["rounds"], 1)
+        log(f"[4] transcribe {name} T={temp} spec_min_accept={min_acc}: "
+            f"encode {t.encode*1e3:.1f} ms, ctc {t.ctc*1e3:.1f} ms, "
+            f"inject (prefill) {t.inject*1e3:.1f} ms, generate "
+            f"{n_tok} pieces in {t.llm_generate*1e3:.1f} ms "
+            f"({n_tok / max(t.llm_generate, 1e-9):.1f} pieces/s), "
+            f"verify rounds {st['rounds']} emitting "
+            f"{st['tokens']} tokens ({per_round:.3f} per round), "
+            f"align {t.align*1e3:.2f} ms, total {t.total:.3f} s "
+            f"(wall {wall:.3f} s); ctc chars {len(res.ctc_text)}, "
+            f"text chars {len(res.text)}, segments "
+            f"{len(res.segments)}")
+        if min_acc == 0 and st["rounds"] < MIN_VERIFY_ROUNDS:
+            raise RuntimeError(f"the spec_min_accept=0 run of {name} ran "
+                               f"only {st['rounds']} verify rounds")
+    log(f"[4] kernel launches in the {name} transcriptions: {counts}")
+    return counts
 
 
 def check_result(res):
@@ -533,13 +688,11 @@ def check_result(res):
         raise RuntimeError(f"clip length {res.audio_seconds} s, expected 60")
 
 
-def step_launches(engine, mods, n_layers):
-    """Kernel launches of one fused decode step and of one verify round:
-    K4 and K2 once per layer, K1 for layer 0's qkv and the head."""
+def step_launches(engine, name, mods, want):
+    """Kernel launches of one decode step and of one verify round of an
+    engine against what its path must launch."""
     m = engine.models
     p = np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32)
-    want = {"q8_matmul": 2, "flash_decode": n_layers, "flash_attention": 0,
-            "q8_layer_fused": n_layers}
     state = m.prefill(p, rng_seed=0)
     torch.cuda.synchronize()
     _reset(mods)
@@ -554,25 +707,28 @@ def step_launches(engine, mods, n_layers):
     m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=64, limit=1)
     torch.cuda.synchronize()
     verify = _counts(mods)
-    log(f"[4] launches per decode step {step}, per verify round (9 rows) "
-        f"{verify}; expected {want}")
+    log(f"[4] {name}: launches per decode step {step}, per verify round "
+        f"(9 rows) {verify}; expected {want}")
     if step != want or verify != want:
-        raise RuntimeError("a decode step or verify round did not run the "
-                           "fused path")
+        raise RuntimeError(f"a decode step or verify round of {name} did "
+                           "not run its path's kernels")
 
 
-def decode_step_ms(engine, steps=64):
-    """ms per decode step (64-step greedy chunk), fused and unfused on the
-    same weights, and ms per verify round (spec_k = 8, empty draft)."""
+def decode_step_ms(engines, steps=64):
+    """ms per decode step (64-step greedy chunk) of every engine and of the
+    q8_0 weights unfused, in turns and back; ms per verify round (spec_k =
+    8, empty draft) of every engine."""
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
-    m = engine.models
-    fused = m.llm_params
-    unfused = {k: v for k, v in fused.items() if k != "q8_fused"}
-    p = np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32)
+    q8 = engines["q8_0"].models
+    turns = [(name, engines[name].models, engines[name].models.llm_params)
+             for name in engines]
+    turns.insert(1 + list(engines).index("q8_0"), (
+        "q8_0 unfused", q8,
+        {k: v for k, v in q8.llm_params.items() if k != "q8_fused"}))
     res = {}
-    for name, params in (("fused", fused), ("unfused", unfused),
-                         ("fused", fused), ("unfused", unfused)):
-        state = m.prefill(p, rng_seed=0)
+    for name, m, params in turns + turns[::-1]:
+        state = m.prefill(np.zeros((200, m.hybrid_cfg.llm.hidden),
+                                   np.float32), rng_seed=0)
         with torch.inference_mode():
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
                            chunk_len=steps, stop_tokens=m.stop_tokens,
@@ -584,22 +740,28 @@ def decode_step_ms(engine, steps=64):
             torch.cuda.synchronize()
         res.setdefault(name, []).append(
             (time.perf_counter() - t0) * 1e3 / steps)
-    sstate = m.spec_prepare(m.prefill(p, rng_seed=0))
-    draft = torch.full((1, m.config.spec_draft_len), -1, dtype=torch.int64,
-                       device=m.device)
-    m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps, limit=4)
-    torch.cuda.synchronize()
-    r0, t0 = int(sstate.rounds[0]), time.perf_counter()
-    m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
-                    limit=steps)
-    torch.cuda.synchronize()
-    rounds = int(sstate.rounds[0]) - r0
-    verify_ms = (time.perf_counter() - t0) * 1e3 / max(rounds, 1)
-    log(f"[4] decode step (28 layers + q8_0 head + sampling, eager), in "
-        f"turns fused / unfused / fused / unfused: "
-        f"{' / '.join(f'{x:.3f}' for x in (res['fused'][0], res['unfused'][0], res['fused'][1], res['unfused'][1]))} "
-        f"ms/step; verify round (9 rows, T=0, empty draft): "
-        f"{verify_ms:.3f} ms/round over {rounds} rounds")
+    verify = {}
+    for name, eng in engines.items():
+        m = eng.models
+        sstate = m.spec_prepare(m.prefill(np.zeros(
+            (200, m.hybrid_cfg.llm.hidden), np.float32), rng_seed=0))
+        draft = torch.full((1, m.config.spec_draft_len), -1,
+                           dtype=torch.int64, device=m.device)
+        m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
+                        limit=4)
+        torch.cuda.synchronize()
+        r0, t0 = int(sstate.rounds[0]), time.perf_counter()
+        m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
+                        limit=steps)
+        torch.cuda.synchronize()
+        verify[name] = (time.perf_counter() - t0) * 1e3 / max(
+            int(sstate.rounds[0]) - r0, 1)
+    log(f"[4] decode step (28 layers + head + sampling, eager), ms/step in "
+        f"turns {' / '.join(n for n, _, _ in turns)} and back: "
+        + "; ".join(f"{n} {' / '.join(f'{x:.3f}' for x in v)}"
+                    for n, v in res.items())
+        + "; verify round (9 rows, T=0, empty draft), ms/round: "
+        + ", ".join(f"{n} {v:.3f}" for n, v in verify.items()))
 
 
 if __name__ == "__main__":

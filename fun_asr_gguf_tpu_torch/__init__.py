@@ -9,9 +9,11 @@ reference each part is tested against; this package never imports jax.
     engine = create_asr_engine(checkpoint_dir=...)
     result = engine.transcribe("audio.wav")
 
-The slice ported so far is the q8_0 decoder with plain (non-speculative)
-decoding at batch 1: ``llm_weight_format="q8_0"`` and
-``speculative=False`` are the defaults here.
+The engine takes the JAX facade's defaults at batch 1: per-channel int8
+decoder weights (``llm_weight_format="auto"`` in bf16 compute), bf16,
+int8 and q8_0 weights, a bf16 or an int8 KV cache, and CTC-draft
+speculation. The host-side modules (audio, formats, hotwords, text
+utilities) are the port's own copies of the JAX package's.
 """
 
 __version__ = "0.1.0"

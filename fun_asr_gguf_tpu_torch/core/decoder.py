@@ -15,12 +15,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fun_asr_gguf_tpu.ctc import align_timestamps, decode_ctc
-from fun_asr_gguf_tpu.datatypes import (DecodeResult, LLMDecodeResult,
-                                        RecognitionStream, Timings)
-from fun_asr_gguf_tpu.display import DisplayReporter
-from fun_asr_gguf_tpu.formats.tokenizer import StreamTextDecoder
-
+from ..ctc import align_timestamps, decode_ctc
+from ..datatypes import (DecodeResult, LLMDecodeResult, RecognitionStream,
+                         Timings)
+from ..display import DisplayReporter
+from ..formats.tokenizer import StreamTextDecoder
 from ..models.speculative import spec_to_gen
 from .model_manager import ModelManager
 

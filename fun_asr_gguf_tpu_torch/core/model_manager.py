@@ -2,16 +2,20 @@
 
 Counterpart of ``fun_asr_gguf_tpu/core/model_manager.py``. The init stages:
 
-1. checkpoint → port parameters on the device (q8_0 decoder, the q8_0
-   lm_head built from the embedding as loaded, packed qkv / gate_up and,
-   with ``fuse_projections``, the ``q8_fused`` marker that routes decode
-   and verify through K4, as JAX's fuse at :151-166 does);
+1. checkpoint → port parameters on the device, in the weight format that
+   JAX's resolution picks (:124-179: ``auto`` is per-channel int8 in bf16
+   compute and dense in float32). q8_0 keeps the GGUF bytes with the q8_0
+   lm_head built from the embedding as loaded; int8 and bf16 load dense,
+   with the per-channel int8 head in bf16 compute (``int8_lm_head``).
+   ``fuse_projections`` packs qkv / gate_up and, for q8_0 only, adds the
+   ``q8_fused`` marker that routes decode and verify through K4 (JAX
+   :151-166). int8 quantizes the packed dense weights last;
 2. tokenizer (stop ids);
 3. CTC vocab + prompt builder over the host f32 embedding table;
 4. warm-up: one encode, one CTC pass, one prefill + generate chunk per
    sampling mode, and with ``speculative`` one speculative chunk and the
-   plain chunk that follows ``spec_to_gen`` (builds the CUDA kernels on
-   first use);
+   plain chunk that follows ``spec_to_gen``, on the configured cache
+   (``kv_cache_dtype``; builds the CUDA kernels on first use);
 5. hotword manager (+ the opt-in rule corrector and correction RAG).
 """
 
@@ -23,22 +27,22 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fun_asr_gguf_tpu.datatypes import ASREngineConfig
-from fun_asr_gguf_tpu.formats.ctc_vocab import load_ctc_tokens
-from fun_asr_gguf_tpu.formats.tokenizer import load_tokenizer
-from fun_asr_gguf_tpu.hotword.manager import get_hotword_manager
-from fun_asr_gguf_tpu.prompt_utils import PromptBuilder
-from fun_asr_gguf_tpu.utils import vprint
-
+from ..datatypes import ASREngineConfig
+from ..formats.ctc_vocab import load_ctc_tokens
+from ..formats.tokenizer import load_tokenizer
 from ..frontend import audio_token_length, frontend_constants
+from ..hotword.manager import get_hotword_manager
 from ..models.adaptor import ctc_head_forward
 from ..models.audio_encoder import AudioEncoderConfig, audio_encoder_forward
 from ..models.generate import generate_chunk, prefill_init
 from ..models.loaders import load_checkpoint
 from ..models.qwen3 import (fuse_qwen3_params_q8, pack_qwen3_params,
-                            quantize_lm_head)
+                            quantize_lm_head, quantize_lm_head_per_channel,
+                            quantize_qwen3_params_int8)
 from ..models.speculative import (spec_generate_chunk, spec_init,
                                   spec_to_gen)
+from ..prompt_utils import PromptBuilder
+from ..utils import vprint
 
 logger = logging.getLogger("fun_asr_gguf_tpu_torch.core")
 
@@ -73,6 +77,15 @@ class ModelManager:
                                else torch.float32)
         self._initialized = False
 
+    @property
+    def weight_format(self) -> str:
+        """The decoder's weight format: ``auto`` resolves as in JAX (int8
+        in bf16 compute, bf16 — dense in the compute dtype — in float32)."""
+        fmt = self.config.llm_weight_format
+        if fmt == "auto":
+            return "int8" if self._compute_dtype == torch.bfloat16 else "bf16"
+        return fmt
+
     # -- static-shape policy (kept: the same buckets bound the KV cache) ----
 
     def pad_window_samples(self, n_samples: int) -> int:
@@ -102,15 +115,25 @@ class ModelManager:
 
             vprint("[1/5] 加载模型权重 (checkpoint)...", verbose)
             ckpt = self.config.checkpoint_dir
+            fmt = self.weight_format
             (self.hybrid_cfg, self.encoder_params, self.adaptor_params,
              self.ctc_params, self.llm_params,
              self.embedding_table) = load_checkpoint(
-                ckpt, device=self.device, dtype=self._compute_dtype)
-            self.llm_params = quantize_lm_head(self.llm_params,
-                                               self.hybrid_cfg.llm)
+                ckpt, device=self.device, dtype=self._compute_dtype,
+                llm_keep_quantized=(fmt == "q8_0"))
+            llm = self.llm_params
+            if fmt == "q8_0":
+                llm = quantize_lm_head(llm, self.hybrid_cfg.llm)
+            elif (self.config.int8_lm_head
+                  and self._compute_dtype == torch.bfloat16):
+                llm = quantize_lm_head_per_channel(llm, self.hybrid_cfg.llm)
             if self.config.fuse_projections:
-                self.llm_params = fuse_qwen3_params_q8(
-                    pack_qwen3_params(self.llm_params))
+                llm = pack_qwen3_params(llm)
+                if fmt == "q8_0":
+                    llm = fuse_qwen3_params_q8(llm)
+            if fmt == "int8":
+                llm = quantize_qwen3_params_int8(llm)
+            self.llm_params = llm
             self.audio_cfg = AudioEncoderConfig(
                 encoder=self.hybrid_cfg.encoder,
                 adaptor=self.hybrid_cfg.adaptor)
@@ -155,8 +178,7 @@ class ModelManager:
             return False
 
     def _init_hotwords(self):
-        from fun_asr_gguf_tpu.hotword.manager import (PollingWatcher,
-                                                      read_or_create_text)
+        from ..hotword.manager import PollingWatcher, read_or_create_text
         hw_path = self.config.hotwords_path or str(
             Path(self.config.checkpoint_dir) / "hot.txt")
         self.hotword_manager = get_hotword_manager(
@@ -167,7 +189,7 @@ class ModelManager:
         self.corrector = self.hotword_manager.get_corrector()
         self.corrector.correct("热个身")
         if self.config.rules_path:
-            from fun_asr_gguf_tpu.hotword.hot_rule import RuleCorrector
+            from ..hotword.hot_rule import RuleCorrector
             rules_file = Path(self.config.rules_path)
             self.rule_corrector = RuleCorrector()
 
@@ -181,8 +203,7 @@ class ModelManager:
             self._rules_watcher = PollingWatcher(rules_file, _load_rules)
             self._rules_watcher.start()
         if self.config.rectify_path:
-            from fun_asr_gguf_tpu.hotword.hot_rectification import \
-                RectificationRAG
+            from ..hotword.hot_rectification import RectificationRAG
             self.rectification = RectificationRAG(self.config.rectify_path)
             self._rectify_watcher = PollingWatcher(
                 Path(self.config.rectify_path),
@@ -235,7 +256,8 @@ class ModelManager:
             self.llm_params,
             torch.from_numpy(buf).to(self.device, self._compute_dtype),
             torch.from_numpy(mask).to(self.device), gen,
-            self.hybrid_cfg.llm, max_len=max_len)
+            self.hybrid_cfg.llm, max_len=max_len,
+            kv_int8=(self.config.kv_cache_dtype == "int8"))
 
     @torch.inference_mode()
     def generate(self, state, temperature: float, top_p: float, top_k: int,

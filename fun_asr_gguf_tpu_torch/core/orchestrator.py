@@ -12,13 +12,11 @@ import os
 import time
 from typing import Optional
 
-from fun_asr_gguf_tpu.audio import load_audio
-from fun_asr_gguf_tpu.datatypes import (RecognitionStream, Statistics,
-                                        TranscriptionResult)
-from fun_asr_gguf_tpu.display import DisplayReporter
-from fun_asr_gguf_tpu.srt_utils import generate_srt_file
-from fun_asr_gguf_tpu.text_merge import merge_transcription_results
-
+from ..audio import load_audio
+from ..datatypes import RecognitionStream, Statistics, TranscriptionResult
+from ..display import DisplayReporter
+from ..srt_utils import generate_srt_file
+from ..text_merge import merge_transcription_results
 from .decoder import StreamDecoder
 from .model_manager import ModelManager
 

@@ -1,7 +1,8 @@
-// K2 — decode attention over one bf16 KV-cache layer for Hopper (sm_90a).
+// K2 — decode attention over one KV-cache layer for Hopper (sm_90a), over
+// a bf16 cache (K2) or an int8 cache with per-(slot, kv head) scales (K2-i8).
 //
 // Replaces the Pallas kernel fun_asr_gguf_tpu/ops/flash_decode.py
-// flash_decode_attention (bf16-cache branch) and matches the XLA reference
+// flash_decode_attention (both branches) and matches the XLA reference
 // fun_asr_gguf_tpu/models/qwen3.py _attend_cache: f32 scores, one EXACT
 // softmax over the whole cache row (masked slots carry a -1e30 bias),
 // probabilities normalised in f32 with the max(l, 1e-30) clamp and then
@@ -18,14 +19,26 @@
 // head_dim columns, so every V row is read once, coalesced; the per-warp
 // partial sums meet in shared memory.
 //
-// Bound by cache bytes (2 x S x kh x hd x 2 B per layer; 4 MB at S = 1024 for
-// Qwen3-0.6B) plus a per-layer launch; split-KV over more blocks is a later
-// PR's work (B x kh = 8 blocks per call at batch 1).
+// The int8 cache (K2-i8) runs the same three phases on the raw int8 values
+// (int8 -> f32 is exact): the scales commute out of the head_dim
+// contraction, as in _attend_cache's QuantKV branch. In phase 1 the lane
+// that owns a slot reads that slot's K and V scales once: K's multiplies
+// the slot's scores before the bias, V's is kept in shared memory, and
+// phase 2 multiplies each normalised probability by it before the bf16
+// rounding.
+//
+// Bound by cache bytes plus a per-layer launch: bf16, 2 x S x kh x hd x 2 B
+// per layer (4.19 MB at S = 1024 for Qwen3-0.6B, 1.25 us at 3.35 TB/s);
+// int8, 2 x S x kh x (hd + 2) B (2.13 MB, 0.64 us). Eight blocks per call
+// at batch 1 (B x kh) cannot draw that rate from 132 SMs; split-KV over
+// more blocks is a later PR's work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,20 +61,56 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int MR>
+// 8 consecutive cache values (one 16-byte bf16 load, one 8-byte int8 load)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __bfloat162float(e[i]);
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float (&o)[8]) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = static_cast<float>(e[i]);
+}
+
+// 4 consecutive cache values (8-byte bf16, 4-byte int8 load)
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = __bfloat162float(e[i]);
+}
+
+__device__ __forceinline__ void load4(const int8_t* p, float (&o)[4]) {
+  const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = static_cast<float>(e[i]);
+}
+
+// CT: cache element type, __nv_bfloat16 (K2) or int8_t (K2-i8, with the
+// scales ks / vs [B, S, kh] bf16; null for bf16)
+template <int MR, typename CT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ vc,
+                    const CT* __restrict__ kc,
+                    const CT* __restrict__ vc,
+                    const __nv_bfloat16* __restrict__ ks,
+                    const __nv_bfloat16* __restrict__ vs,
                     const float* __restrict__ bias,
                     __nv_bfloat16* __restrict__ out,
                     int T, int qh, int kh, int S) {
+  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
   extern __shared__ float smem[];
   const int group = qh / kh;
   const int R = T * group;
   float* sc = smem;                          // [R][S] scores -> probs
   // [warps][R][hd], 16-byte aligned for the float4 reads of phase 1
   float* red = smem + ((static_cast<size_t>(R) * S + 3) & ~size_t{3});
+  float* vsc = red + static_cast<size_t>(kWarps) * R * kHd;   // [S], int8
 
   const int hk = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -80,20 +129,17 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // dots its whole K row with all R query rows, read from shared memory as
   // broadcasts: no shuffle reduction per (slot, row)
   const size_t row_stride = static_cast<size_t>(kh) * kHd;    // per slot
-  const __nv_bfloat16* kb = kc + static_cast<size_t>(b) * S * row_stride +
-                            static_cast<size_t>(hk) * kHd;
+  const CT* kb = kc + static_cast<size_t>(b) * S * row_stride +
+                 static_cast<size_t>(hk) * kHd;
   for (int s = warp * 32 + lane; s < S; s += kWarps * 32) {
-    const __nv_bfloat16* kr = kb + static_cast<size_t>(s) * row_stride;
+    const CT* kr = kb + static_cast<size_t>(s) * row_stride;
     float acc[MR];
 #pragma unroll
     for (int r = 0; r < MR; ++r) acc[r] = 0.f;
 #pragma unroll 2
     for (int c = 0; c < kHd; c += 8) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + c));
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
       float kv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) kv[i] = __bfloat162float(e[i]);
+      load8(kr + c, kv);
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
         if (r < R) {
@@ -109,11 +155,20 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
+    float kscale = 1.f;
+    if constexpr (kQuant) {   // this slot's scales, read once
+      const size_t si = (static_cast<size_t>(b) * S + s) * kh + hk;
+      kscale = __bfloat162float(ks[si]);
+      vsc[s] = __bfloat162float(vs[si]);
+    }
 #pragma unroll
     for (int r = 0; r < MR; ++r)
-      if (r < R)
+      if (r < R) {
+        const float b_rs =
+            bias[(static_cast<size_t>(b) * T + r / group) * S + s];
         sc[static_cast<size_t>(r) * S + s] =
-            acc[r] + bias[(static_cast<size_t>(b) * T + r / group) * S + s];
+            kQuant ? acc[r] * kscale + b_rs : acc[r] + b_rs;
+      }
   }
   __syncthreads();
 
@@ -131,16 +186,19 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     l = warp_sum(l);
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    for (int s = lane; s < S; s += 32)
-      row[s] = __bfloat162float(__float2bfloat16(row[s] * inv));
+    for (int s = lane; s < S; s += 32) {
+      float p = row[s] * inv;
+      if constexpr (kQuant) p *= vsc[s];   // V's scale, before the rounding
+      row[s] = __bfloat162float(__float2bfloat16(p));
+    }
   }
   __syncthreads();
 
   // phase 3: mix; warp w takes slots w, w + 8, ..., its lanes 4 columns
   // each (one coalesced 256-byte V row per step), then the 8 warps'
   // partial sums are added in shared memory
-  const __nv_bfloat16* vb = vc + static_cast<size_t>(b) * S * row_stride +
-                            static_cast<size_t>(hk) * kHd + lane * 4;
+  const CT* vb = vc + static_cast<size_t>(b) * S * row_stride +
+                 static_cast<size_t>(hk) * kHd + lane * 4;
   float acc[MR][4];
 #pragma unroll
   for (int r = 0; r < MR; ++r)
@@ -148,16 +206,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
 #pragma unroll 4
   for (int s = warp; s < S; s += kWarps) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        vb + static_cast<size_t>(s) * row_stride));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    float e[4];
+    load4(vb + static_cast<size_t>(s) * row_stride, e);
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
       if (r < R) {
         const float p = sc[static_cast<size_t>(r) * S + s];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          acc[r][i] = fmaf(p, __bfloat162float(e[i]), acc[r][i]);
+          acc[r][i] = fmaf(p, e[i], acc[r][i]);
       }
     }
   }
@@ -182,6 +239,33 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <typename CT>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* bias, void* out, int B, int T, int qh,
+           int kh, int S, int hd, void* stream) {
+  if (hd != kHd || qh % kh != 0 || T * (qh / kh) > kMaxR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int R = T * (qh / kh);
+  const size_t smem =
+      (((static_cast<size_t>(R) * S + 3) & ~size_t{3}) + kWarps * R * kHd +
+       (std::is_same<CT, int8_t>::value ? S : 0)) *
+      sizeof(float);
+  // two instances: R <= 4 serves the decode step (one row per query head
+  // of the group), R <= 18 the verify step; unused rows cost registers
+  auto kernel = R <= 4 ? flash_decode_kernel<4, CT>
+                       : flash_decode_kernel<kMaxR, CT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(kh, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(k),
+      static_cast<const CT*>(v), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), T, qh, kh, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q: bf16 [B, T, qh, hd] (pre-scaled); k, v: bf16 [B, S, kh, hd];
@@ -190,22 +274,16 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* bias, void* out, int B, int T,
                                  int qh, int kh, int S, int hd, void* stream) {
-  if (hd != kHd || qh % kh != 0 || T * (qh / kh) > kMaxR)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int R = T * (qh / kh);
-  const size_t smem =
-      (((static_cast<size_t>(R) * S + 3) & ~size_t{3}) + kWarps * R * kHd) *
-      sizeof(float);
-  // two instances: R <= 4 serves the decode step (one row per query head
-  // of the group), R <= 18 the verify step; unused rows cost registers
-  auto kernel = R <= 4 ? flash_decode_kernel<4> : flash_decode_kernel<kMaxR>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(kh, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), T, qh, kh, S);
-  return static_cast<int>(cudaGetLastError());
+  return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, bias, out, B, T, qh,
+                               kh, S, hd, stream);
+}
+
+// The int8 cache: k, v int8 [B, S, kh, hd]; k_scale, v_scale bf16
+// [B, S, kh, 1]; the rest as flash_decode_bf16.
+extern "C" int flash_decode_i8(const void* q, const void* k, const void* v,
+                               const void* k_scale, const void* v_scale,
+                               const void* bias, void* out, int B, int T,
+                               int qh, int kh, int S, int hd, void* stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, bias, out, B, T, qh, kh, S,
+                        hd, stream);
 }

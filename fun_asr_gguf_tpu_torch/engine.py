@@ -1,25 +1,27 @@
 """Public facade: FunASREngine / create_asr_engine.
 
 Counterpart of ``fun_asr_gguf_tpu/engine.py`` with the same checkpoint
-directory and call surface. The port covers the q8_0 decoder at batch 1
-with the JAX engine's default decode: the fused per-layer chain
-(``fuse_projections=True``, kernel K4) and CTC-draft speculation
-(``speculative=True``, ``spec_k=8``, with the ``spec_min_accept``
-guardrail). Its one default that differs from the JAX facade's is
-``llm_weight_format="q8_0"`` (JAX: ``"auto"``, int8). Settings outside
-that slice raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; none of them runs something else instead.
+directory, call surface and defaults, at batch 1: ``llm_weight_format=
+"auto"`` (per-channel int8 weights and head in bf16 compute, dense in
+float32), ``bf16`` and ``int8`` explicitly, and ``q8_0`` with the fused
+per-layer chain (kernel K4); ``kv_cache_dtype`` ``"bf16"`` or ``"int8"``
+(kernel K2-i8); CTC-draft speculation (``speculative=True``, ``spec_k=8``,
+with the ``spec_min_accept`` guardrail). Settings outside the ported
+slices raise ``NotImplementedError`` naming the ROADMAP item that ports
+them; none of them runs something else instead.
+
+The engine runs on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``); without a card it raises.
 """
 
 from typing import Optional
 
 import torch
 
-from fun_asr_gguf_tpu.datatypes import (ASREngineConfig, DecodeResult,
-                                        RecognitionStream, TranscriptionResult)
-
 from .core.model_manager import ModelManager
 from .core.orchestrator import TranscriptionOrchestrator
+from .datatypes import (ASREngineConfig, DecodeResult, RecognitionStream,
+                        TranscriptionResult)
 
 
 def _todo(what: str, item: str):
@@ -45,7 +47,7 @@ class FunASREngine:
                  compute_dtype: str = "bfloat16",
                  segment_pad_seconds: float = 60.0,
                  prefill_buckets=(256, 512),
-                 llm_weight_format: str = "q8_0",
+                 llm_weight_format: str = "auto",
                  fuse_projections: bool = True,
                  ctc_beam_size: int = 1,
                  warmup: bool = True,
@@ -55,13 +57,18 @@ class FunASREngine:
                  spec_min_accept: float = 1.35,
                  mesh_shape: Optional[dict] = None,
                  kv_cache_dtype: str = "bf16",
+                 int8_lm_head: bool = True,
                  device: Optional[str] = None):
-        if llm_weight_format != "q8_0":
-            _todo(f"llm_weight_format={llm_weight_format!r}",
-                  "Weight formats and the int8 KV cache")
-        if kv_cache_dtype != "bf16":
-            _todo(f"kv_cache_dtype={kv_cache_dtype!r}",
-                  "Weight formats and the int8 KV cache")
+        if llm_weight_format not in ("auto", "bf16", "int8", "int4",
+                                     "q8_0"):
+            raise ValueError(
+                f"llm_weight_format must be auto|bf16|int8|int4|q8_0, got "
+                f"{llm_weight_format!r}")
+        if llm_weight_format == "int4":
+            _todo("llm_weight_format='int4'", "Int4Weight")
+        if kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be bf16|int8, got {kv_cache_dtype!r}")
         if mesh_shape:
             _todo("mesh_shape (multi-device serving)", "Multi-GPU and training")
         if ctc_beam_size > 1:
@@ -70,11 +77,14 @@ class FunASREngine:
         if compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype must be bfloat16|float32, got "
                              f"{compute_dtype!r}")
-        dev = torch.device(device or
-                           ("cuda" if torch.cuda.is_available() else "cpu"))
+        dev = torch.device(device or "cuda")
         if dev.type == "cuda" and compute_dtype != "bfloat16":
             _todo("compute_dtype='float32' on CUDA (the kernels take bf16 "
                   "activations)", "float32 compute on CUDA")
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FunASREngine runs on a CUDA card and none is available; "
+                "pass device='cpu' to run the plain PyTorch path on the CPU")
         self.config = ASREngineConfig(
             checkpoint_dir=checkpoint_dir, tokens_path=tokens_path,
             tokenizer_path=tokenizer_path, hotwords_path=hotwords_path,
@@ -88,7 +98,7 @@ class FunASREngine:
             fuse_projections=fuse_projections, ctc_beam_size=ctc_beam_size,
             warmup=warmup, speculative=speculative, spec_k=spec_k,
             spec_draft_len=spec_draft_len, spec_min_accept=spec_min_accept,
-            kv_cache_dtype=kv_cache_dtype)
+            kv_cache_dtype=kv_cache_dtype, int8_lm_head=int8_lm_head)
         self.device = dev
         self.models = ModelManager(self.config, dev)
         self.orchestrator = TranscriptionOrchestrator(self.models)

@@ -41,6 +41,7 @@ SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
     "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_decode_i8": [_P] * 7 + [_I] * 6 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -13,11 +13,10 @@ from dataclasses import dataclass, field
 
 import torch
 
-from fun_asr_gguf_tpu.models.config import AdaptorConfig, EncoderConfig
-
 from ..frontend import (FrontendConfig, audio_token_length_tensor,
                         compute_lfr_features)
 from .adaptor import adaptor_forward
+from .config import AdaptorConfig, EncoderConfig
 from .sanm import encoder_forward
 
 

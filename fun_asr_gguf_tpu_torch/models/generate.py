@@ -48,13 +48,15 @@ class GenState:
 
 
 def prefill_init(params, embeds, attn_mask, generator: torch.Generator, cfg,
-                 max_len: int) -> GenState:
+                 max_len: int, kv_int8: bool = False) -> GenState:
     """embeds [B, P, hidden] left-padded, attn_mask [B, P]; ``max_len`` is
-    the KV capacity (>= P + n_predict)."""
+    the KV capacity (>= P + n_predict); ``kv_int8`` keeps the cache in
+    int8 (``qwen3.QuantKV``), and every later step and verify round
+    writes and reads it so."""
     b, p, _ = embeds.shape
     dev = embeds.device
     logits, kv = qwen3_prefill(params, embeds, attn_mask, cfg,
-                               kv_max_len=max_len)
+                               kv_max_len=max_len, kv_int8=kv_int8)
     prompt_len = attn_mask.sum(dim=1).to(torch.int64)
     return GenState(
         kv=kv, logits=logits, prompt_len=prompt_len,

@@ -11,8 +11,11 @@ Counterpart of the checkpoint half of ``fun_asr_gguf_tpu/models/loaders.py``
   leading layer dim);
 * ``decoder.gguf`` — a llama.cpp qwen3 GGUF whose matmul weights are q8_0.
 
-Only the qwen3 arch and q8_0 matmul weights are read here; other GGUF
-families and weight formats raise ``NotImplementedError``. The safetensors
+Only the qwen3 arch is read here; other GGUF families raise
+``NotImplementedError``. The decoder's matmul weights load either as q8_0
+(``keep_quantized``, the q8_0 GGUF bytes) or dense in the compute dtype
+(JAX ``load_qwen3_from_gguf(keep_quantized=False)``), from which the
+int8 format is quantized. The safetensors
 format (8-byte header length, JSON header, raw little-endian bytes) is
 read and written with numpy alone.
 """
@@ -26,12 +29,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fun_asr_gguf_tpu.formats.gguf import GGMLType, GGUFReader, GGUFWriter
-from fun_asr_gguf_tpu.models.config import (AdaptorConfig, CTCHeadConfig,
-                                            EncoderConfig, HybridConfig,
-                                            Qwen3Config)
-
+from ..formats.gguf import GGMLType, GGUFReader, GGUFWriter
 from ..ops.quant_matmul import Q8Weight
+from .config import (AdaptorConfig, CTCHeadConfig, EncoderConfig,
+                     HybridConfig, Qwen3Config)
 
 CONFIG_FILE = "config.json"
 ENCODER_FILE = "encoder.safetensors"
@@ -121,8 +122,6 @@ def _tree_to_torch(tree, device, dtype):
 # ---------------------------------------------------------------------------
 
 _UNSUPPORTED_ARCH = ("ROADMAP.md, Queue 1: 'Other decoder families'")
-_UNSUPPORTED_FMT = ("ROADMAP.md, Queue 1: 'Weight formats and the int8 "
-                    "KV cache'")
 
 
 def qwen3_config_from_gguf(reader: GGUFReader) -> Qwen3Config:
@@ -158,13 +157,19 @@ def qwen3_config_from_gguf(reader: GGUFReader) -> Qwen3Config:
         attn_bias=False)
 
 
-def load_qwen3_from_gguf(path: str, device=None, dtype=torch.bfloat16):
-    """Load a q8_0 qwen3 GGUF → (params, config, host f32 embedding table).
+def load_qwen3_from_gguf(path: str, device=None, dtype=torch.bfloat16,
+                         keep_quantized: bool = True):
+    """Load a qwen3 GGUF → (params, config, host f32 embedding table).
 
-    Matmul weights stay int8 + scales (:class:`Q8Weight`, natural k order,
-    stacked ``[L, n, k]``); norms and the device embedding table are in
-    ``dtype``. An untied ``output.weight`` is kept dense under
-    ``lm_head`` (``[hidden, vocab]``) for :func:`..qwen3.quantize_lm_head`.
+    With ``keep_quantized`` the matmul weights stay int8 + scales
+    (:class:`Q8Weight`, natural k order, stacked ``[L, n, k]``; a tensor
+    that is not q8_0 raises). Without it every matmul weight is
+    dequantized to f32, transposed to ``[in, out]`` and cast to ``dtype``
+    (stacked ``[L, in, out]``), as JAX's dense route does: the int8
+    quantizer then sees the same ``dtype``-rounded values as JAX's. Norms
+    and the device embedding table are in ``dtype``. An untied
+    ``output.weight`` is kept dense under ``lm_head`` (``[hidden, vocab]``)
+    for the head quantizers of :mod:`..qwen3`.
     """
     r = GGUFReader(path)
     cfg = qwen3_config_from_gguf(r)
@@ -173,8 +178,9 @@ def load_qwen3_from_gguf(path: str, device=None, dtype=torch.bfloat16):
         info = r.tensor_info(name)
         if info.ggml_type != GGMLType.Q8_0:
             raise NotImplementedError(
-                f"{name} is {info.ggml_type.name}: only q8_0 decoder weights "
-                f"are ported ({_UNSUPPORTED_FMT})")
+                f"{name} is {info.ggml_type.name}: llm_weight_format='q8_0' "
+                "takes q8_0 decoder weights; load this GGUF with 'bf16' or "
+                "'int8'")
         return r.tensor_q8_0(name)
 
     def stack_q8(fmt):
@@ -183,6 +189,13 @@ def load_qwen3_from_gguf(path: str, device=None, dtype=torch.bfloat16):
         d = torch.from_numpy(np.stack([p[1] for p in pairs]).astype(
             np.float32))
         return Q8Weight(q=q.to(device), d=d.to(device))
+
+    def stack_dense(fmt):
+        return torch.from_numpy(np.stack([
+            np.ascontiguousarray(r.tensor(fmt.format(i)).astype(np.float32).T)
+            for i in range(cfg.n_layers)])).to(device=device, dtype=dtype)
+
+    mat = stack_q8 if keep_quantized else stack_dense
 
     def vstack(fmt):
         return torch.from_numpy(np.stack(
@@ -193,13 +206,13 @@ def load_qwen3_from_gguf(path: str, device=None, dtype=torch.bfloat16):
     layers = {
         "input_ln": vstack("blk.{}.attn_norm.weight"),
         "post_ln": vstack("blk.{}.ffn_norm.weight"),
-        "q_w": stack_q8("blk.{}.attn_q.weight"),
-        "k_w": stack_q8("blk.{}.attn_k.weight"),
-        "v_w": stack_q8("blk.{}.attn_v.weight"),
-        "o_w": stack_q8("blk.{}.attn_output.weight"),
-        "gate_w": stack_q8("blk.{}.ffn_gate.weight"),
-        "up_w": stack_q8("blk.{}.ffn_up.weight"),
-        "down_w": stack_q8("blk.{}.ffn_down.weight"),
+        "q_w": mat("blk.{}.attn_q.weight"),
+        "k_w": mat("blk.{}.attn_k.weight"),
+        "v_w": mat("blk.{}.attn_v.weight"),
+        "o_w": mat("blk.{}.attn_output.weight"),
+        "gate_w": mat("blk.{}.ffn_gate.weight"),
+        "up_w": mat("blk.{}.ffn_up.weight"),
+        "down_w": mat("blk.{}.ffn_down.weight"),
     }
     if cfg.qk_norm:
         layers["q_norm"] = vstack("blk.{}.attn_q_norm.weight")
@@ -231,9 +244,12 @@ def _cfg_from_dict(d) -> HybridConfig:
                         llm=Qwen3Config(**d["llm"]))
 
 
-def load_checkpoint(ckpt_dir: str, device=None, dtype=torch.float32):
+def load_checkpoint(ckpt_dir: str, device=None, dtype=torch.float32,
+                    llm_keep_quantized: bool = True):
     """Load a checkpoint directory → (cfg, encoder, adaptor, ctc, llm,
-    host f32 embedding table). Every float tensor is in ``dtype``."""
+    host f32 embedding table). Every float tensor is in ``dtype``; the
+    decoder's matmul weights stay q8_0 with ``llm_keep_quantized``, else
+    they are dense (:func:`load_qwen3_from_gguf`)."""
     with open(os.path.join(ckpt_dir, CONFIG_FILE)) as f:
         cfg = _cfg_from_dict(json.load(f))
     groups: Dict[str, Dict[str, np.ndarray]] = {
@@ -244,7 +260,8 @@ def load_checkpoint(ckpt_dir: str, device=None, dtype=torch.float32):
     enc, ada, ctc = (_tree_to_torch(_unflatten(groups[g]), device, dtype)
                      for g in ("encoder", "adaptor", "ctc"))
     llm, llm_cfg, embed = load_qwen3_from_gguf(
-        os.path.join(ckpt_dir, DECODER_GGUF), device=device, dtype=dtype)
+        os.path.join(ckpt_dir, DECODER_GGUF), device=device, dtype=dtype,
+        keep_quantized=llm_keep_quantized)
     cfg = HybridConfig(encoder=cfg.encoder, adaptor=cfg.adaptor, ctc=cfg.ctc,
                        llm=llm_cfg)
     return cfg, enc, ada, ctc, llm, embed

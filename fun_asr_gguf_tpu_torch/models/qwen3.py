@@ -4,12 +4,17 @@ Counterpart of the qwen3 path of ``fun_asr_gguf_tpu/models/qwen3.py``:
 ``rope_cos_sin`` :379 / ``apply_rope`` :399 (half-split rotation), qk
 RMSNorm, ``init_kv_cache`` :361, ``qwen3_prefill`` :1309,
 ``qwen3_decode_step`` :1415, ``qwen3_verify_step`` :1630,
-``_attend_cache`` :315, ``_logits`` :1935, ``quantize_lm_head`` :629 and
-``fuse_qwen3_params_q8`` :657. Sliding windows, MoE, MLA and softcaps are
+``_attend_cache`` :315, ``_logits`` :1935, ``quantize_lm_head`` :629,
+``fuse_qwen3_params_q8`` :657, ``quantize_qwen3_params_int8`` :500,
+``quantize_lm_head_per_channel`` :1898 and the int8 cache (``QuantKV``
+:196, ``_kv_quantize`` :224). Sliding windows, MoE, MLA and softcaps are
 not ported (other decoder families).
 
-Every projection and the lm_head go through K1 (``ops.quant_matmul``);
-decode and verify attention go through K2 (``ops.flash_decode``). Prefill
+Weight formats: q8_0 projections and head go through K1
+(``ops.quant_matmul``); per-channel int8 (:class:`Int8Weight`, the JAX
+engine's default in bf16 compute) and dense weights take plain f32
+products, as JAX leaves them to XLA. Decode and verify attention go
+through K2 (``ops.flash_decode``), over a bf16 or an int8 cache. Prefill
 attention is plain PyTorch, as the JAX package leaves it to XLA.
 
 Params carrying the ``q8_fused`` marker (:func:`fuse_qwen3_params_q8`)
@@ -20,21 +25,22 @@ the head stay on K1. The TPU's perm space is not ported, so the fused tree
 keeps every byte where the packed tree has it.
 
 KV cache: ``[n_layers, B, max_len, kv_heads, head_dim]`` in the compute
-dtype. The prompt occupies slots ``[P - L, P)`` of a left-padded bucket of
-``P``; generated token ``t`` lives at slot ``P + t`` with rope position
-``L + t``. Unlike the JAX program (pure functions), the port updates the
-cache IN PLACE — one [B, kh, hd] row per layer per step, no copy.
+dtype, or int8 values with one scale per (slot, kv head) in the compute
+dtype (:class:`QuantKV`). The prompt occupies slots ``[P - L, P)`` of a
+left-padded bucket of ``P``; generated token ``t`` lives at slot ``P + t``
+with rope position ``L + t``. Unlike the JAX program (pure functions), the
+port updates the cache IN PLACE — one [B, kh, hd] row per layer per step,
+no copy; an int8 cache quantizes each new row as it is written.
 """
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from fun_asr_gguf_tpu.formats.quant_np import q8_0_quantize
-
+from ..formats.quant_np import q8_0_quantize
 from ..ops.flash_decode import flash_decode_attention
-from ..ops.quant_matmul import (Q8Weight, concat_rows, layer, matmul_any,
+from ..ops.quant_matmul import (Int8Weight, Q8Weight, layer, matmul_any,
                                 q8_mlp_fused, q8_mlp_qkv_fused)
 from .common import rms_norm
 
@@ -42,20 +48,55 @@ NEG_INF = -1e30
 _HEAD_PAD = 1024          # lm_head rows padded to a multiple (152576)
 
 
+class QuantKV(NamedTuple):
+    """One half of an int8 cache: per-(layer, row, slot, kv head) absmax
+    scales in the activation dtype (JAX ``QuantKV`` :196)."""
+    q: torch.Tensor    # int8 [n_layers, B, S, kv_heads, head_dim]
+    s: torch.Tensor    # activation dtype [n_layers, B, S, kv_heads, 1]
+
+
 class KVCache(NamedTuple):
-    k: torch.Tensor    # [n_layers, B, S, kv_heads, head_dim]
-    v: torch.Tensor
+    k: Any    # [n_layers, B, S, kv_heads, head_dim] tensor — or QuantKV
+    v: Any
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[2]
+        return (self.k.q if isinstance(self.k, QuantKV) else self.k).shape[2]
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None) -> KVCache:
+                  device=None, kv_int8: bool = False) -> KVCache:
     shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    if kv_int8:
+        def half():     # k and v are distinct allocations
+            return QuantKV(
+                q=torch.zeros(shape, dtype=torch.int8, device=device),
+                s=torch.zeros(shape[:-1] + (1,), dtype=dtype, device=device))
+        return KVCache(k=half(), v=half())
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _kv_quantize(a):
+    """[..., head_dim] activations → (int8 values, [..., 1] scales in a's
+    dtype). The values are rounded against the scale AS STORED (after the
+    cast to the activation dtype), half to even as ``jnp.round``."""
+    af = a.to(torch.float32)
+    s = (af.abs().amax(dim=-1, keepdim=True) / 127.0).to(a.dtype)
+    sf = s.to(torch.float32)
+    q = torch.round(af / torch.where(sf == 0, 1.0, sf))
+    return q.clamp(-127, 127).to(torch.int8), s
+
+
+def _kv_write(cache, l: int, index, new):
+    """Store ``new`` at ``cache[l][index]`` in place; an int8 cache stores
+    the quantized values and their scales."""
+    if isinstance(cache, QuantKV):
+        q, s = _kv_quantize(new)
+        cache.q[l][index] = q
+        cache.s[l][index] = s
+    else:
+        cache[l][index] = new
 
 
 # ---------------------------------------------------------------------------
@@ -88,15 +129,70 @@ def quantize_lm_head(params, cfg):
     return out
 
 
+def quantize_lm_head_per_channel(params, cfg):
+    """Add the per-channel int8 output projection ``lm_head_i8 = (w
+    [hidden, vocab] int8, scale [vocab] f32)``, as JAX ``qwen3.py:1898``
+    builds it: from the tied embedding (or the untied head) as loaded,
+    absmax / 127 per vocab column, no vocab padding."""
+    if "lm_head_i8" in params or "lm_head_q" in params:
+        return params
+    head = _lm_head(params, cfg).to(torch.float32)       # [hidden, vocab]
+    scale = head.abs().amax(dim=0) / 127.0
+    w = torch.round(head / torch.where(scale == 0, 1.0, scale))
+    out = dict(params)
+    out["lm_head_i8"] = (w.to(torch.int8).contiguous(), scale)
+    out.pop("lm_head", None)
+    return out
+
+
+_MATMUL_KEYS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w",
+                "qkv_w", "gate_up_w")
+
+
+def quantize_qwen3_params_int8(params):
+    """Dense layer weights [L, k, n] → per-channel int8 (:class:`Int8Weight`,
+    JAX ``qwen3.py:500``): per output channel absmax / 127, rounded half to
+    even as ``jnp.round``, the scale stored in bf16; layer by layer, so the
+    f32 transient is one layer's. q8_0 weights are left as they are."""
+    layers = dict(params["layers"])
+    for key in _MATMUL_KEYS:
+        w = layers.get(key)
+        if not isinstance(w, torch.Tensor):
+            continue
+        per = []
+        for wl in w:
+            wf = wl.to(torch.float32)
+            s = wf.abs().amax(dim=-2, keepdim=True) / 127.0
+            per.append(Int8Weight(
+                w8=torch.round(wf / torch.where(s == 0, 1.0, s)).to(
+                    torch.int8),
+                scale=s.to(torch.bfloat16)))
+        layers[key] = Int8Weight(w8=torch.stack([p.w8 for p in per]),
+                                 scale=torch.stack([p.scale for p in per]))
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def _concat_out(ws):
+    """Stack weights along the output dim: q8_0 rows (``n`` is dim -2),
+    int8 and dense columns (dim -1). Every output channel is independent,
+    so packing changes no number."""
+    if isinstance(ws[0], (Q8Weight, Int8Weight)):
+        dim = -2 if isinstance(ws[0], Q8Weight) else -1
+        return type(ws[0])(*(torch.cat(parts, dim=dim) for parts in zip(*ws)))
+    return torch.cat(ws, dim=-1)
+
+
 def pack_qwen3_params(params):
-    """Fuse q/k/v and gate/up into one projection each (one K1 call each).
-    q8_0 rows are independent, so packing changes no number."""
+    """Fuse q/k/v and gate/up into one projection each (one product each;
+    JAX ``qwen3.py:578``)."""
     layers = dict(params["layers"])
     if "qkv_w" in layers:
         return params
-    layers["qkv_w"] = concat_rows([layers.pop(k) for k in ("q_w", "k_w",
+    layers["qkv_w"] = _concat_out([layers.pop(k) for k in ("q_w", "k_w",
                                                             "v_w")])
-    layers["gate_up_w"] = concat_rows([layers.pop(k) for k in ("gate_w",
+    layers["gate_up_w"] = _concat_out([layers.pop(k) for k in ("gate_w",
                                                                "up_w")])
     out = dict(params)
     out["layers"] = layers
@@ -122,7 +218,7 @@ def fuse_qwen3_params_q8(params):
 
 
 def _layer_params(layers, l: int):
-    return {k: layer(w, l) if isinstance(w, Q8Weight) else w[l]
+    return {k: layer(w, l) if isinstance(w, (Q8Weight, Int8Weight)) else w[l]
             for k, w in layers.items()}
 
 
@@ -244,18 +340,33 @@ def _gqa_mix(probs, v, cfg):
     return out.reshape(b, cfg.q_heads, t, cfg.head_dim).to(v.dtype)
 
 
-def _attend_cache(q, k_cache, v_cache, bias, cfg):
-    """q [B,T,qh,D] over one cache layer [B,S,kh,D] with bias [B,T,S]
-    → [B,qh,T,D], through K2 (q pre-scaled in its own dtype, as the JAX
-    flash path does)."""
-    qs = (q.to(torch.float32) * _attn_scale(cfg)).to(q.dtype)
-    return flash_decode_attention(qs.contiguous(), k_cache, v_cache, bias)
+def _attend_cache(q, kv: KVCache, l: int, bias, cfg):
+    """q [B,T,qh,D] over layer ``l`` of the cache with bias [B,T,S]
+    → [B,qh,T,D], through K2, or K2-i8 for an int8 cache (q pre-scaled in
+    its own dtype, as the JAX flash path does)."""
+    qs = (q.to(torch.float32) * _attn_scale(cfg)).to(q.dtype).contiguous()
+    if isinstance(kv.k, QuantKV):
+        return flash_decode_attention(qs, kv.k.q[l], kv.v.q[l], bias,
+                                      kv.k.s[l], kv.v.s[l])
+    return flash_decode_attention(qs, kv.k[l], kv.v[l], bias)
+
+
+def _lm_head(params, cfg):
+    """The dense output projection [hidden, vocab]."""
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
 def _logits(params, x, cfg):
-    """x [..., hidden] → logits [..., vocab] f32 through the q8_0 head
-    (K1); the padded vocab rows are sliced off."""
-    return matmul_any(x, params["lm_head_q"])[..., :cfg.vocab_size]
+    """x [..., hidden] → logits [..., vocab] f32 (JAX ``_logits_raw``
+    :1945): the q8_0 head through K1 (its padded vocab rows sliced off),
+    the per-channel int8 head on bf16-rounded x with the f32 scale after
+    the product, or the dense head."""
+    if "lm_head_q" in params:
+        return matmul_any(x, params["lm_head_q"])[..., :cfg.vocab_size]
+    if "lm_head_i8" in params:
+        w, s = params["lm_head_i8"]
+        return matmul_any(x.to(torch.bfloat16), w) * s
+    return matmul_any(x, _lm_head(params, cfg))
 
 
 def embed_tokens(params, token_ids):
@@ -266,13 +377,15 @@ def embed_tokens(params, token_ids):
 # prefill / decode
 # ---------------------------------------------------------------------------
 
-def qwen3_prefill(params, embeds, attn_mask, cfg, kv_max_len=None):
+def qwen3_prefill(params, embeds, attn_mask, cfg, kv_max_len=None,
+                  kv_int8: bool = False):
     """embeds [B, P, H] left-padded, attn_mask [B, P] (1 = valid) →
     (last-position logits [B, vocab] f32, KVCache with slots [0, P)
-    written)."""
+    written). Attention runs on the unquantized k/v; ``kv_int8`` stores
+    the cache as int8 (:class:`QuantKV`)."""
     b, p, _ = embeds.shape
     dev = embeds.device
-    kv = init_kv_cache(cfg, b, kv_max_len or p, embeds.dtype, dev)
+    kv = init_kv_cache(cfg, b, kv_max_len or p, embeds.dtype, dev, kv_int8)
     prompt_len = attn_mask.sum(dim=1).to(torch.int64)
     shift = p - prompt_len
     positions = (torch.arange(p, device=dev)[None, :] - shift[:, None])
@@ -290,8 +403,8 @@ def qwen3_prefill(params, embeds, attn_mask, cfg, kv_max_len=None):
         lp = _layer_params(layers, l)
         q, k, v = _qkv(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp, cfg,
                        cos, sin)
-        kv.k[l, :, :p] = k
-        kv.v[l, :, :p] = v
+        _kv_write(kv.k, l, (slice(None), slice(None, p)), k)
+        _kv_write(kv.v, l, (slice(None), slice(None, p)), v)
         probs = torch.softmax(_gqa_scores(q, k, cfg) + bias, dim=-1)
         attn = _proj(_merge_heads(_gqa_mix(probs, v, cfg), cfg), lp["o_w"])
         x = x + attn
@@ -318,10 +431,10 @@ def verify_bias(kv: KVCache, slots, t: int, valid_from):
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
 
 
-def _layer_stack(params, kv: KVCache, x, cos, sin, bias, write, cfg):
+def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
     """The decoder layers over x [B, T, H] → the final-normed hidden
-    states. ``write(l, k, v)`` stores layer l's T new k/v rows in the
-    cache BEFORE attending, so each token sees itself."""
+    states. Layer l's T new k/v rows go to ``cache[l][index]`` BEFORE it
+    attends, so each token sees itself."""
     layers = params["layers"]
     if "q8_fused" in params:
         # JAX's megacall v2 branch: layer l's K4 call also emits layer
@@ -331,8 +444,9 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, write, cfg):
         qkv = _proj(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp["qkv_w"])
         for l in range(cfg.n_layers):
             q, k, v = _qkv_post(qkv, lp, cfg, cos, sin)
-            write(l, k, v)
-            heads = _attend_cache(q, kv.k[l], kv.v[l], bias, cfg)
+            _kv_write(kv.k, l, index, k)
+            _kv_write(kv.v, l, index, v)
+            heads = _attend_cache(q, kv, l, bias, cfg)
             if l + 1 < cfg.n_layers:
                 lp_next = _layer_params(layers, l + 1)
                 x, qkv = _fused_mlp_qkv_call(heads, x, lp, lp_next, cfg)
@@ -344,8 +458,9 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, write, cfg):
             lp = _layer_params(layers, l)
             q, k, v = _qkv(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp, cfg,
                            cos, sin)
-            write(l, k, v)
-            heads = _attend_cache(q, kv.k[l], kv.v[l], bias, cfg)
+            _kv_write(kv.k, l, index, k)
+            _kv_write(kv.v, l, index, v)
+            heads = _attend_cache(q, kv, l, bias, cfg)
             x = x + _proj(_merge_heads(heads, cfg), lp["o_w"])
             x = x + _mlp(rms_norm(x, lp["post_ln"], cfg.rms_eps), lp)
     return rms_norm(x, params["final_ln"], cfg.rms_eps)
@@ -366,13 +481,9 @@ def qwen3_decode_step(params, kv: KVCache, token_embed, slot: int, position,
     (logits [B, vocab] f32, the same cache updated in place)."""
     x = token_embed[:, None, :]
     cos, sin = _rope(position[:, None], cfg, x.dtype)
-
-    def write(l, k, v):
-        kv.k[l, :, slot] = k[:, 0]
-        kv.v[l, :, slot] = v[:, 0]
-
     x = _layer_stack(params, kv, x, cos, sin,
-                     decode_bias(kv, slot, valid_from), write, cfg)
+                     decode_bias(kv, slot, valid_from),
+                     (slice(None), slice(slot, slot + 1)), cfg)
     return _logits(params, x[:, 0, :], cfg), kv
 
 
@@ -391,11 +502,6 @@ def qwen3_verify_step(params, kv: KVCache, token_embeds, slots, positions,
     cos, sin = _rope(positions, cfg, token_embeds.dtype)
     rows = torch.arange(b, device=slots.device)[:, None]
     cols = slots[:, None] + torch.arange(t, device=slots.device)[None, :]
-
-    def write(l, k, v):
-        kv.k[l][rows, cols] = k
-        kv.v[l][rows, cols] = v
-
     x = _layer_stack(params, kv, token_embeds, cos, sin,
-                     verify_bias(kv, slots, t, valid_from), write, cfg)
+                     verify_bias(kv, slots, t, valid_from), (rows, cols), cfg)
     return _logits(params, x, cfg), kv

@@ -10,6 +10,11 @@ at ``t*(k/32)+b``); it is un-permuted here, in numpy, into the natural
 ``[..., n, k]`` int8 + ``[..., n, k/32]`` f32 :class:`Q8Weight` the CUDA
 kernel reads.
 
+A JAX ``Int8Weight`` (``w8``, ``scale``) becomes the port's
+:class:`Int8Weight` unchanged, the per-channel head ``lm_head_i8`` a pair
+of tensors, and a JAX ``KVCache`` (bf16, or ``QuantKV`` halves) the port's
+(:func:`kv_from_jax`).
+
 A tree that went through the JAX ``fuse_qwen3_params_q8`` (``qwen3.py:657``)
 also lives in the TPU's perm space: o / gate_up (each half) / down have
 block-permuted OUTPUT channels and the norm weights are block-permuted.
@@ -19,7 +24,7 @@ block-permuted OUTPUT channels and the norm weights are block-permuted.
 import numpy as np
 import torch
 
-from ..ops.quant_matmul import BLOCK, Q8Weight
+from ..ops.quant_matmul import BLOCK, Int8Weight, Q8Weight
 
 
 def block_unpermute(a: np.ndarray) -> np.ndarray:
@@ -60,6 +65,12 @@ def q8_fused_from_jax(tree, device=None, dtype=torch.float32):
     return fuse_qwen3_params_q8(to_torch(out, device, dtype))
 
 
+def _fields(x):
+    """Field names of a NamedTuple leaf (``QuantTensor`` has q, d;
+    ``Int8Weight`` w8, scale); None for anything else."""
+    return getattr(type(x), "_fields", None)
+
+
 def _is_quant_pair(x) -> bool:
     return (isinstance(x, tuple) and len(x) == 2
             and isinstance(x[0], np.ndarray) and x[0].dtype == np.int8)
@@ -75,11 +86,17 @@ def q8_from_jax(pair, device=None) -> Q8Weight:
 
 def to_torch(tree, device=None, dtype=torch.float32):
     """Numpy parameter tree → tensors (floats in ``dtype``); q8_0 pairs →
-    :class:`Q8Weight`."""
+    :class:`Q8Weight`; ``Int8Weight`` → :class:`Int8Weight` (its bf16
+    scales kept in bf16); ``lm_head_i8`` → (int8, f32) tensors."""
+    if _fields(tree) == ("w8", "scale"):
+        return Int8Weight(w8=to_torch(tree.w8, device),
+                          scale=to_torch(tree.scale, device, torch.bfloat16))
     if _is_quant_pair(tree):
         return q8_from_jax(tree, device)
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: (tuple(to_torch(a, device) for a in v)
+                    if k == "lm_head_i8" else to_torch(v, device, dtype))
+                for k, v in tree.items()}
     a = np.array(tree)
     if a.dtype.name == "bfloat16":        # ml_dtypes: exact through f32
         a = a.astype(np.float32)
@@ -87,3 +104,17 @@ def to_torch(tree, device=None, dtype=torch.float32):
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def kv_from_jax(kv, device=None, dtype=torch.float32):
+    """A JAX ``KVCache`` (as numpy) → the port's: bf16 arrays become
+    tensors in ``dtype``; ``QuantKV`` halves keep their int8 values and
+    get their scales in ``dtype``."""
+    from .qwen3 import KVCache, QuantKV
+
+    def half(a):
+        if _fields(a) == ("q", "s"):
+            return QuantKV(q=to_torch(a.q, device),
+                           s=to_torch(a.s, device, dtype))
+        return to_torch(a, device, dtype)
+    return KVCache(k=half(kv.k), v=half(kv.v))

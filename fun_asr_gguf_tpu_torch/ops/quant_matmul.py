@@ -12,6 +12,8 @@ Weights stay in the GGUF q8_0 form: ``Q8Weight(q=[..., n, k] int8,
 d=[..., n, k/32] f32)`` in NATURAL k order — the TPU's block-permuted lane
 order (``block_permute``) does not exist on the GPU. A layer of a stacked
 ``[L, n, k]`` weight is a view (:func:`layer`), i.e. a pointer offset.
+Per-channel int8 (:class:`Int8Weight`) and dense weights take plain f32
+products in :func:`matmul_any`; they never reach K1.
 
 Numerics (both versions): ``y = bf16(x) @ bf16(q * d)^T`` with the product
 ``q * d`` formed in f32 and rounded to bf16 once, f32 accumulation, f32
@@ -42,16 +44,22 @@ class Q8Weight(NamedTuple):
         return self.q.shape
 
 
-def layer(w: Q8Weight, i: int) -> Q8Weight:
-    """Layer ``i`` of a stacked [L, n, k] weight (a view, no copy)."""
-    return Q8Weight(q=w.q[i], d=w.d[i])
+class Int8Weight(NamedTuple):
+    """Per-channel int8 weight (JAX ``models/qwen3.py`` ``Int8Weight`` :40):
+    ``w8 [..., k, n]`` int8 and one bf16 scale per output channel,
+    ``scale [..., 1, n]``. Its product is a plain one (:func:`matmul_any`),
+    as in JAX, where XLA and not a Pallas kernel computes it."""
+    w8: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.w8.shape
 
 
-def concat_rows(ws) -> Q8Weight:
-    """Stack q8_0 weights along the output dim (q8_0 rows are
-    independent, so packing never changes a number)."""
-    return Q8Weight(q=torch.cat([w.q for w in ws], dim=-2),
-                    d=torch.cat([w.d for w in ws], dim=-2))
+def layer(w, i: int):
+    """Layer ``i`` of a stacked [L, ...] weight (a view, no copy)."""
+    return type(w)(*(t[i] for t in w))
 
 
 def dequantize(w: Q8Weight) -> torch.Tensor:
@@ -226,12 +234,20 @@ def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
-    """Dense ``x @ w`` or q8_0 ``x @ dequant(w)^T``, f32 out; leading
-    batch dims on ``x`` are flattened (JAX ``matmul_any``). The dense
-    branch upcasts both operands: bf16 products are exact in f32, so this
-    is JAX's bf16-in / ``preferred_element_type=f32`` dot."""
+    """``x @ w`` in f32 for a q8_0 (K1), per-channel int8 or dense weight;
+    leading batch dims on ``x`` are flattened (JAX ``matmul_any`` and
+    ``_proj``'s ``Int8Weight`` branch, ``qwen3.py:425-431``).
+
+    The int8 and dense products are plain PyTorch in f32: both operands
+    upcast (int8 and bf16 values are exact in f32, so this is JAX's
+    ``preferred_element_type=f32`` dot, without the bf16 rounding of the
+    output that a bf16 ``torch.matmul`` on CUDA would add), then the int8
+    weight's f32 per-channel scale."""
     if isinstance(w, Q8Weight):
         lead = x.shape[:-1]
         out = q8_matmul(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, out.shape[-1])
+    if isinstance(w, Int8Weight):
+        return (torch.matmul(x.to(torch.float32), w.w8.to(torch.float32))
+                * w.scale.to(torch.float32))
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))

@@ -109,6 +109,63 @@ def test_flash_decode_kernel_refuses_other_head_dims(dev):
         tfd.flash_decode_attention(q, k, k, torch.zeros(1, 10, 8, device=dev))
 
 
+def _i8_cache(dev, b, s, kh, seed):
+    from fun_asr_gguf_tpu_torch.models.qwen3 import _kv_quantize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(b, s, kh, 128, generator=g, device=dev)
+    v = torch.randn(b, s, kh, 128, generator=g, device=dev)
+    scale = torch.rand(b, s, kh, 1, generator=g, device=dev) * 3 + 0.1
+    (kq, ks), (vq, vs) = (_kv_quantize((a * scale).to(torch.bfloat16))
+                          for a in (k, v))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("t", [1, 9])
+@pytest.mark.parametrize("s", [64, 777, 1033])
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_decode_i8_kernel_matches_plain(dev, t, s, b):
+    g = torch.Generator(device=dev).manual_seed(s + t)
+    q = (torch.randn(b, t, 16, 128, generator=g, device=dev) / 11.3).to(
+        torch.bfloat16)
+    kq, vq, ks, vs = _i8_cache(dev, b, s, 8, seed=s)
+    j = torch.arange(s, device=dev)
+    i = torch.arange(t, device=dev)[:, None]
+    bias = torch.where((j >= 5) & (j <= s - t - 2 + i), 0.0,
+                       -1e30).float().expand(b, t, s).contiguous()
+    before = (tfd.launches, tfd.launches_i8)
+    out = tfd.flash_decode_attention(q, kq, vq, bias, ks, vs)
+    torch.cuda.synchronize()
+    assert (tfd.launches, tfd.launches_i8) == (before[0], before[1] + 1)
+    assert out.shape == (b, 16, t, 128) and out.dtype == torch.bfloat16
+    # bf16 output; expf and sum order move results by about one ulp
+    assert _rel_err(out, tfd.flash_decode_plain(q, kq, vq, bias, ks,
+                                                vs)) < 2e-2
+
+
+def test_flash_decode_i8_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 1, 16, 128, device=dev, dtype=torch.bfloat16)
+    kq, vq, ks, vs = _i8_cache(dev, 1, 64, 8, seed=0)
+    bias = torch.zeros(1, 1, 64, device=dev)
+    with pytest.raises(TypeError):                        # f32 scales
+        tfd.flash_decode_attention(q, kq, vq, bias, ks.float(), vs.float())
+    with pytest.raises(TypeError):                        # bf16 cache
+        tfd.flash_decode_attention(q, kq.to(torch.bfloat16), vq, bias, ks, vs)
+    with pytest.raises(ValueError):                       # one scale only
+        tfd.flash_decode_attention(q, kq, vq, bias, ks, None)
+    wide = torch.zeros(1, 64, 8, 256, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):                       # not contiguous
+        tfd.flash_decode_attention(q, wide[..., :128], vq, bias, ks, vs)
+    q10 = torch.zeros(1, 10, 16, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                       # 20 rows > 18
+        tfd.flash_decode_attention(q10, kq, vq,
+                                   torch.zeros(1, 10, 64, device=dev), ks, vs)
+    with pytest.raises(ValueError):                       # shared memory
+        big = _i8_cache(dev, 1, 3000, 8, seed=1)
+        tfd.flash_decode_attention(
+            torch.zeros(1, 9, 16, 128, device=dev, dtype=torch.bfloat16),
+            big[0], big[1], torch.zeros(1, 9, 3000, device=dev), *big[2:])
+
+
 QD, H, F, NQ = 512, 256, 384, 640     # K4 test widths (all % 32 == 0)
 
 

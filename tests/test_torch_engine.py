@@ -6,15 +6,21 @@
 * The port's ``transcribe()`` returns the ``TranscriptionResult``
   structure, and its CTC text equals the JAX engine's on the same
   checkpoint and WAV (float32 compute on both).
-* Settings outside the ported slice raise ``NotImplementedError``.
+* Settings outside the ported slices raise ``NotImplementedError``; an
+  engine without ``device`` targets the card.
 * A subprocess runs a tiny port transcription with the default decode
-  (fused chain, CTC-draft speculation) without importing jax.
+  (CTC-draft speculation) and an int8 KV cache without importing jax or
+  any module of the JAX package; a static scan finds no import of it in
+  the port, ``chip_smoke.py`` or ``chip_profile.py``.
 """
 
+import ast
 import base64
+import glob
 import os
 import subprocess
 import sys
+from dataclasses import asdict
 
 import numpy as np
 import pytest
@@ -23,12 +29,16 @@ import torch
 import jax
 
 from fun_asr_gguf_tpu.audio import write_wav
-from fun_asr_gguf_tpu.datatypes import TranscriptionResult
-from fun_asr_gguf_tpu.hotword.manager import reset_hotword_manager
+from fun_asr_gguf_tpu.hotword.manager import \
+    reset_hotword_manager as jax_reset_hotwords
 from fun_asr_gguf_tpu.models.config import HybridConfig
 from fun_asr_gguf_tpu.models.loaders import (create_random_checkpoint,
                                              load_checkpoint)
+from fun_asr_gguf_tpu_torch.datatypes import TranscriptionResult
+from fun_asr_gguf_tpu_torch.hotword.manager import reset_hotword_manager
 from fun_asr_gguf_tpu_torch.models import loaders as tload
+from fun_asr_gguf_tpu_torch.models.config import \
+    HybridConfig as PortHybridConfig
 from fun_asr_gguf_tpu_torch.models.weights import to_torch
 from fun_asr_gguf_tpu_torch.ops.quant_matmul import Q8Weight
 
@@ -38,6 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE_KW = dict(verbose=False, compute_dtype="float32",
                  segment_pad_seconds=2.0, n_predict=4, prefill_buckets=(64,),
                  warmup=False)
+PORT_KW = dict(ENGINE_KW, device="cpu")
 
 
 def _add_vocab_files(ckpt, cfg):
@@ -90,7 +101,7 @@ def test_jax_checkpoint_loads_equal_to_converted_params(jax_ckpt):
     ckpt, _ = jax_ckpt
     jcfg, want, jembed = _jax_load_as_port(ckpt)
     cfg, *got, embed = tload.load_checkpoint(ckpt, dtype=torch.float32)
-    assert cfg == jcfg
+    assert asdict(cfg) == asdict(jcfg)
     for g, w in zip(got, want):
         assert_trees_equal(g, w)
     np.testing.assert_array_equal(embed, jembed)
@@ -98,11 +109,11 @@ def test_jax_checkpoint_loads_equal_to_converted_params(jax_ckpt):
 
 def test_port_written_checkpoint_loads_in_jax(tmp_path):
     ckpt = str(tmp_path / "model")
-    cfg = tload.write_random_checkpoint(ckpt, HybridConfig.tiny(), seed=3)
+    cfg = tload.write_random_checkpoint(ckpt, PortHybridConfig.tiny(), seed=3)
     jcfg, want, jembed = _jax_load_as_port(ckpt)
     tcfg, *got, embed = tload.load_checkpoint(ckpt, dtype=torch.float32)
     # the GGUF stores rms_eps as f32, so compare the two loaded configs
-    assert tcfg == jcfg and tcfg.encoder == cfg.encoder
+    assert asdict(tcfg) == asdict(jcfg) and tcfg.encoder == cfg.encoder
     assert tcfg.llm.hidden == cfg.llm.hidden
     for g, w in zip(got, want):
         assert_trees_equal(g, w)
@@ -126,7 +137,7 @@ def test_transcribe_structure_and_ctc_text_match_jax(jax_ckpt, wav):
     ckpt, _ = jax_ckpt
     from fun_asr_gguf_tpu import create_asr_engine as jax_engine
     from fun_asr_gguf_tpu_torch import create_asr_engine as port_engine
-    reset_hotword_manager()
+    jax_reset_hotwords()
     long_kw = dict(verbose=False, temperature=0.0, segment_size=0.5,
                    overlap=0.1)          # 1.5 s clip → the windowed long path
     jeng = jax_engine(checkpoint_dir=ckpt, speculative=False, **ENGINE_KW)
@@ -135,8 +146,9 @@ def test_transcribe_structure_and_ctc_text_match_jax(jax_ckpt, wav):
         ref_long = jeng.transcribe(wav, **long_kw)
     finally:
         jeng.cleanup()
+        jax_reset_hotwords()
     reset_hotword_manager()
-    teng = port_engine(ckpt, **ENGINE_KW)
+    teng = port_engine(ckpt, llm_weight_format="q8_0", **PORT_KW)
     try:
         res = teng.transcribe(wav, verbose=False, temperature=0.0)
         sampled = teng.transcribe(wav, verbose=False)
@@ -158,13 +170,30 @@ def test_transcribe_structure_and_ctc_text_match_jax(jax_ckpt, wav):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(llm_weight_format="bf16"), dict(llm_weight_format="int8"),
-    dict(llm_weight_format="auto"), dict(kv_cache_dtype="int8"),
+    dict(llm_weight_format="int4"),
+    dict(compute_dtype="float32", device="cuda"),
     dict(mesh_shape={"dp": 1, "tp": 2}), dict(ctc_beam_size=4)])
 def test_settings_outside_the_slice_raise(kwargs):
     from fun_asr_gguf_tpu_torch import FunASREngine
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FunASREngine("unused", **{"device": "cpu", **kwargs})
+
+
+@pytest.mark.parametrize("kwargs", [dict(llm_weight_format="int16"),
+                                    dict(kv_cache_dtype="f8")])
+def test_unknown_formats_are_refused(kwargs):
+    from fun_asr_gguf_tpu_torch import FunASREngine
+    with pytest.raises(ValueError, match="must be"):
         FunASREngine("unused", device="cpu", **kwargs)
+
+
+def test_engine_without_device_targets_the_card():
+    from fun_asr_gguf_tpu_torch import FunASREngine
+    if torch.cuda.is_available():
+        assert FunASREngine("unused").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FunASREngine("unused")
 
 
 def test_batched_and_streaming_entry_points_raise(jax_ckpt, wav):
@@ -181,9 +210,9 @@ def test_batched_and_streaming_entry_points_raise(jax_ckpt, wav):
 NO_JAX_SCRIPT = r"""
 import base64, os, sys
 import numpy as np
-from fun_asr_gguf_tpu.audio import write_wav
-from fun_asr_gguf_tpu.models.config import HybridConfig
 from fun_asr_gguf_tpu_torch import create_asr_engine
+from fun_asr_gguf_tpu_torch.audio import write_wav
+from fun_asr_gguf_tpu_torch.models.config import HybridConfig
 from fun_asr_gguf_tpu_torch.models.loaders import write_random_checkpoint
 root = sys.argv[1]
 ckpt = os.path.join(root, "model")
@@ -196,8 +225,8 @@ wav = os.path.join(root, "a.wav")
 write_wav(wav, np.random.default_rng(0).normal(size=16000) * 0.05, 16000)
 eng = create_asr_engine(ckpt, verbose=False, compute_dtype="float32",
                         device="cpu", segment_pad_seconds=2.0, n_predict=4,
-                        prefill_buckets=(64,), hotwords_path=os.path.join(
-                            root, "hot.txt"))
+                        prefill_buckets=(64,), kv_cache_dtype="int8",
+                        hotwords_path=os.path.join(root, "hot.txt"))
 spec_generate, states = eng.models.spec_generate, []
 def recording(state, *args, **kw):            # the default decode speculates
     states.append(state)
@@ -208,7 +237,10 @@ rounds = int(states[-1].rounds[0]) if states else 0
 eng.cleanup()
 assert isinstance(res.text, str) and res.ctc_text and rounds > 0
 assert "fun_asr_gguf_tpu_torch.models.speculative" in sys.modules
+assert "fun_asr_gguf_tpu_torch.hotword.manager" in sys.modules
 print("JAX_LOADED", "jax" in sys.modules)
+print("JAX_PACKAGE", sorted(m for m in sys.modules if m == "fun_asr_gguf_tpu"
+                            or m.startswith("fun_asr_gguf_tpu.")))
 """
 
 
@@ -219,3 +251,37 @@ def test_port_runs_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "JAX_LOADED False" in proc.stdout
+    assert "JAX_PACKAGE []" in proc.stdout
+
+
+def _imported_modules(path):
+    """Every module name an ``import`` / ``from ... import`` of the file
+    names (relative imports resolved against the file's package)."""
+    rel = os.path.relpath(path, REPO)
+    package = os.path.dirname(rel).replace(os.sep, ".")
+    names = []
+    for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".") if package else []
+            if node.level:
+                base = base[:len(base) - node.level + 1]
+            else:
+                base = []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names += [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    files = sorted(glob.glob(os.path.join(REPO, "fun_asr_gguf_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "chip_profile.py")]
+    assert len(files) > 40
+    bad = {os.path.relpath(f, REPO): m for f in files
+           for m in _imported_modules(f)
+           if m == "jax" or m.startswith("jax.") or m == "fun_asr_gguf_tpu"
+           or m.startswith("fun_asr_gguf_tpu.")}
+    assert not bad, bad

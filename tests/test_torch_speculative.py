@@ -297,8 +297,8 @@ def test_spec_to_gen_mid_stream_keeps_greedy_ids(weights, tree):
 
 @pytest.fixture(scope="module")
 def engine_inputs(tmp_path_factory):
-    from fun_asr_gguf_tpu.audio import write_wav
-    from fun_asr_gguf_tpu.models.config import HybridConfig
+    from fun_asr_gguf_tpu_torch.audio import write_wav
+    from fun_asr_gguf_tpu_torch.models.config import HybridConfig
     from fun_asr_gguf_tpu_torch.models.loaders import write_random_checkpoint
     root = tmp_path_factory.mktemp("spec_engine")
     ckpt = str(root / "model")
@@ -313,11 +313,12 @@ def engine_inputs(tmp_path_factory):
 
 
 def _engine_ids(engine_inputs, monkeypatch, **kwargs):
-    """Greedy transcription → (generated ids, verify rounds)."""
-    from fun_asr_gguf_tpu.formats.tokenizer import StreamTextDecoder
-    from fun_asr_gguf_tpu.hotword.manager import reset_hotword_manager
+    """Greedy transcription of the q8_0 engine (unless ``kwargs`` name
+    another format) → (generated ids, verify rounds)."""
     from fun_asr_gguf_tpu_torch import create_asr_engine
     from fun_asr_gguf_tpu_torch.core import decoder as tdec
+    from fun_asr_gguf_tpu_torch.formats.tokenizer import StreamTextDecoder
+    from fun_asr_gguf_tpu_torch.hotword.manager import reset_hotword_manager
     ckpt, wav, hot = engine_inputs
     ids = []
 
@@ -331,7 +332,8 @@ def _engine_ids(engine_inputs, monkeypatch, **kwargs):
     eng = create_asr_engine(ckpt, verbose=False, compute_dtype="float32",
                             device="cpu", segment_pad_seconds=2.0,
                             n_predict=24, prefill_buckets=(64,),
-                            hotwords_path=hot, **kwargs)
+                            hotwords_path=hot,
+                            **{"llm_weight_format": "q8_0", **kwargs})
     rounds = [0]
     inner = eng.models.spec_generate
 
