@@ -16,26 +16,34 @@ Phases, one line each (any failure raises and exits non-zero):
    larger of bytes over 3.35 TB/s and operations over the input type's
    peak): K1 at decode (m = 1), verify (m = 9) and prefill rows, K2 and
    K2-i8 at T = 1 and at the verify step's T = 9 on stacked 28-layer
-   caches, K3, and K4 (the fused layer chain, with and without the
-   next-layer qkv stage) at m = 1 and m = 9 on layer views of stacked
-   [28, n, k] weights;
+   caches, K3, K4 (the fused layer chain, with and without the next-layer
+   qkv stage) and K4c (the last layer's chain with the final norm and the
+   152576-row head, timed beside the K4b + K1 head calls it replaces) at
+   m = 1 and m = 9 on layer views of stacked [28, n, k] weights, and K5
+   (the whole decode step in one launch) at full width on 28-layer
+   head-major caches of S = 768 and 1024;
 4. end-to-end transcription through ``create_asr_engine(...).transcribe()``
    of a 60 s synthetic clip on a full-width random checkpoint (70-layer
    SANM encoder + Qwen3-0.6B): the JAX facade's defaults (``auto`` →
    per-channel int8 weights and head, bf16 cache, CTC-draft speculation
    with its guardrail), greedy; the int8 KV cache (K2-i8), greedy and with
    the guardrail off (``spec_min_accept=0``) so verify rounds run across
-   the whole clip; and q8_0 weights (fused decode, K4), greedy, at the
-   default temperature and with the guardrail off. First the card paths
-   of those engines against the CPU f32 path on small inputs; then stage
-   timings, verify rounds and each kernel's launch count per path; the
-   launches of one decode step and of one verify round per engine; and ms
-   per decode step and per verify round, engine against engine in turns.
+   the whole clip; q8_0 weights (fused decode, K4), greedy, at the
+   default temperature and with the guardrail off; the all-layers route
+   (q8_0, ``speculative=False``, ``fuse_qwen3_params_q8_mega``: one K5
+   launch per step), greedy; and the fused-head route (q8_0 under
+   ``FUNASR_Q8_FUSED_HEAD=1``: K4c in the last layer), greedy. First the
+   card paths of those engines against the CPU f32 path on small inputs;
+   then stage timings, verify rounds and each kernel's launch count per
+   path; the launches of one decode step and of one verify round per
+   engine; and ms per decode step and per verify round, engine against
+   engine in turns.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -70,6 +78,12 @@ K2_TOL = 2e-2     # bf16 output: __expf and sum order move results by ~1 ulp
 K3_TOL = 2e-2     # bf16 P.V operands vs the plain f32 softmax, bf16 output
 K4_TOL = 5e-3     # same bf16 products; f32 sums in another order flip
                   # isolated bf16 ulps of the normed rows and gated product
+                  # (K4 and K4c)
+K5_TOL = 3e-2     # K4's flips through 28 layers of one f32 residual, plus
+                  # expf and the attention sums in another order (measured
+                  # <= 1.25e-2 on an H100)
+K5_COS = 0.9995   # cosine of the logits against the plain version (measured
+                  # >= 0.99991)
 LAYERS = 28       # Qwen3-0.6B: K4 rows cycle the layers, so L2 is cold
 # the bound of a kernel: NVIDIA's H100 SXM data sheet at 700 W (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -187,7 +201,11 @@ def phase_kernels(dev):
     rows["q8_matmul"]["max_abs_err"] = worst
 
     rows.update(phase_k2(dev, gen))
-    rows["q8_layer_fused"] = phase_k4(dev, gen)
+    w = stacked_weights(dev, gen)
+    rows["q8_layer_fused"] = phase_k4(dev, gen, w)
+    rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w)
+    rows["q8_decode_all"] = phase_k5(dev, gen, w)
+    del w
 
     # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
     bh, t, dd = 4, 1001, 128
@@ -217,24 +235,33 @@ def phase_kernels(dev):
     return rows
 
 
-def phase_k4(dev, gen):
+def stacked_weights(dev, gen):
+    """Random Qwen3-0.6B q8_0 weights: stacked [28, n, k] o, gate_up, down
+    and packed qkv, the [152576, 1024] head, and bf16 norm weights [28, 2,
+    1024] (post, next input)."""
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+
+    def q8(*shape):
+        q = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        d = (torch.rand(*shape[:-1], shape[-1] // 32, generator=gen,
+                        device=dev) * 1.5e-4 + 2e-4).half().float()
+        return qm.Q8Weight(q, d)
+
+    return dict(o=q8(LAYERS, 1024, 2048), gu=q8(LAYERS, 6144, 1024),
+                dn=q8(LAYERS, 1024, 3072), qkv=q8(LAYERS, 4096, 1024),
+                head=q8(152576, 1024),
+                norms=(1 + 0.1 * torch.randn(LAYERS, 2, 1024, generator=gen,
+                                             device=dev)).to(torch.bfloat16))
+
+
+def phase_k4(dev, gen, w):
     """K4 at full width on layer views of stacked [28, n, k] weights: the
     next-layer-qkv form (layers 0..26) and the last-layer form, at m = 1
     (decode) and m = 9 (verify). Timed calls cycle the layers."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
     bf = torch.bfloat16
-
-    def stacked(n, k):
-        q = torch.randint(-128, 128, (LAYERS, n, k), generator=gen,
-                          device=dev, dtype=torch.int8)
-        d = (torch.rand(LAYERS, n, k // 32, generator=gen, device=dev)
-             * 1.5e-4 + 2e-4).half().float()
-        return qm.Q8Weight(q, d)
-
-    o, gu, dn, qkv = (stacked(1024, 2048), stacked(6144, 1024),
-                      stacked(1024, 3072), stacked(4096, 1024))
-    norms = (1 + 0.1 * torch.randn(LAYERS, 2, 1024, generator=gen,
-                                   device=dev)).to(bf)
+    o, gu, dn, qkv, norms = w["o"], w["gu"], w["dn"], w["qkv"], w["norms"]
     ln = [0]
 
     def args(l, with_qkv):
@@ -278,6 +305,153 @@ def phase_k4(dev, gen):
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
             if with_qkv and m == 1:
                 row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+    row["max_abs_err"] = worst
+    return row
+
+
+@contextlib.contextmanager
+def env_vars(values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+FUSED_HEAD = {"FUNASR_Q8_FUSED_HEAD": "1"}
+
+
+def phase_k4c(dev, gen, w):
+    """K4c (the last layer's chain + final norm + the 152576-row head) at
+    m = 1 (decode) and m = 9 (verify) on layer views of the stacked
+    weights, beside the calls it replaces: K4b, the final RMSNorm and the
+    K1 head, as the decoder runs them with the knob off."""
+    from fun_asr_gguf_tpu_torch.models.common import rms_norm
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+    bf = torch.bfloat16
+    head, norms = w["head"], w["norms"]
+    final = norms[0, 1]
+    ln = [0]
+
+    def layer_w(cycle):
+        if cycle:
+            ln[0] = (ln[0] + 1) % LAYERS
+        l = ln[0]
+        return [norms[l, 0], qm.layer(w["o"], l), qm.layer(w["gu"], l),
+                qm.layer(w["dn"], l)]
+
+    def fused(fn, xm, res, cycle=True):
+        post, o, gu, dn = layer_w(cycle)
+        return fn(xm, res, post, final, o, gu, dn, head, 1e-6)
+
+    def replaced(xm, res):
+        post, o, gu, dn = layer_w(True)
+        out = qm.q8_mlp_fused(xm, res, post, o, gu, dn, 1e-6)
+        return qm.q8_matmul(rms_norm(out.to(bf), final, 1e-6), head)
+
+    row, worst = {}, 0.0
+    with env_vars(FUSED_HEAD):
+        for m in (1, 9):
+            xm = torch.randn(m, 2048, generator=gen, device=dev).to(bf)
+            res = torch.randn(m, 1024, generator=gen, device=dev).to(bf)
+            errs = [compare(f"K4c q8_layer_head_fused m={m}", g, r, K4_TOL)
+                    for g, r in zip(
+                        fused(qm.q8_layer_head_fused, xm, res, cycle=False),
+                        fused(qm.q8_layer_head_fused_plain, xm, res,
+                              cycle=False))]
+            err = max(e for e, _ in errs)
+            rel = max(r for _, r in errs)
+            worst = max(worst, err)
+            ms = time_ms(lambda: fused(qm.q8_layer_head_fused, xm, res))
+            pms = time_ms(lambda: fused(qm.q8_layer_head_fused_plain, xm,
+                                        res))
+            rms = time_ms(lambda: replaced(xm, res))
+            ws = layer_w(False)[1:] + [head]
+            b = bound(nbytes(xm, res, norms[0, 0], final,
+                             *(a for q in ws for a in q))
+                      + m * (1024 + 152576) * 4,
+                      2 * m * sum(q.q.numel() for q in ws))
+            log(f"[3] K4c q8_layer_head_fused m={m} (o 1024x2048, gate_up "
+                f"6144x1024, down 1024x3072, head 152576x1024): max_abs_err "
+                f"{err:.3e} rel {rel:.2e} (tol {K4_TOL:g}) kernel {ms:.4f} ms "
+                f"plain {pms:.4f} ms; replaces K4b + final norm + K1 head "
+                f"{rms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
+            if m == 1:
+                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+    row["max_abs_err"] = worst
+    return row
+
+
+def mega_inputs(dev, gen, w, s_len, valid_from, slot):
+    """K5's inputs at full width: the token's f32 embedding row and its
+    bf16 layer-0 norm, the norm weights, f32 rope rows for position slot,
+    the bias row (cached slots [valid_from, slot) visible) and a random
+    28-layer head-major bf16 cache [28, 8, S, 128]."""
+    bf = torch.bfloat16
+    x0 = torch.randn(1, 1024, generator=gen, device=dev) * 0.1
+    nhb0 = (x0 * torch.rsqrt(x0.square().mean(-1, keepdim=True) + 1e-6)
+            * w["norms"][0, 1].float()).to(bf)
+    qk_norms = (1 + 0.1 * torch.randn(2, LAYERS, 128, generator=gen,
+                                      device=dev)).to(bf)
+    inv = 1.0 / (1e6 ** (torch.arange(64, device=dev) / 64))
+    ang = torch.cat([slot * inv, slot * inv])[None]
+    j = torch.arange(s_len, device=dev)
+    bias = torch.where((j >= valid_from) & (j < slot), 0.0,
+                       -1e30).to(torch.float32)[None]
+    cache = [torch.randn(LAYERS, 8, s_len, 128, generator=gen,
+                         device=dev).to(bf) for _ in range(2)]
+    norms_next = torch.cat([w["norms"][1:, 1], w["norms"][:1, 1]])
+    return (x0, nhb0, w["norms"][:, 0].contiguous(), norms_next.contiguous(),
+            qk_norms[0], qk_norms[1], ang.cos(), ang.sin(), bias, *cache,
+            w["qkv"], w["o"], w["gu"], w["dn"], w["head"], 1e-6)
+
+
+def phase_k5(dev, gen, w):
+    """K5 at full width (28 layers, GQA 16/8, head-major bf16 caches): S =
+    768 (the 256-token bucket + 512 new tokens) with every cached slot but
+    the last visible, and S = 1024 with valid_from = 56 (a left-padded
+    200-token prompt) and slot 1000. The bound counts the visible slots'
+    cache bytes: the kernel reads no masked row."""
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+    row, worst = {}, 0.0
+    for s_len, vf, slot in ((768, 0, 767), (1024, 56, 1000)):
+        args = mega_inputs(dev, gen, w, s_len, vf, slot)
+        got = qm.q8_decode_all_fused(*args)
+        ref = qm.q8_decode_all_fused_plain(*args)
+        cos = _cos(got[0], ref[0])
+        errs = [compare(f"K5 q8_decode_all S={s_len} {name}", g, r, K5_TOL)
+                for name, g, r in zip(("logits", "k_new", "v_new"), got,
+                                      ref)]
+        if not cos > K5_COS:
+            raise RuntimeError(f"K5 S={s_len}: logits cosine {cos:.6f} <= "
+                               f"{K5_COS}")
+        worst = max([worst] + [e for e, _ in errs])
+        ms = time_ms(lambda: qm.q8_decode_all_fused(*args), iters=10)
+        pms = time_ms(lambda: qm.q8_decode_all_fused_plain(*args), iters=5,
+                      warmup=1)
+        visible = slot - vf
+        ws = [w[k] for k in ("qkv", "o", "gu", "dn", "head")]
+        n_bytes = (nbytes(*(a for q in ws for a in q), *args[:9])
+                   + visible * LAYERS * 8 * 128 * 2 * 2
+                   + 152576 * 4 + 2 * LAYERS * 8 * 128 * 4)
+        b = bound(n_bytes, 2 * sum(q.q.numel() for q in ws)
+                  + LAYERS * 4 * 16 * visible * 128)
+        log(f"[3] K5 q8_decode_all 28 layers S={s_len} visible slots "
+            f"[{vf}, {slot}): logits rel {errs[0][1]:.2e} cosine {cos:.7f}, "
+            f"k_new rel {errs[1][1]:.2e}, v_new rel {errs[2][1]:.2e} (tol "
+            f"{K5_TOL:g}, cosine > {K5_COS}) kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{n_bytes / 1e6:.2f} MB)")
+        if s_len == 768:
+            row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+        del args, got, ref
     row["max_abs_err"] = worst
     return row
 
@@ -372,6 +546,10 @@ KERNELS = [
      "fun_asr_gguf_tpu/ops/flash_attention.py:90"),
     ("q8_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8_layer_fused.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:832, :649"),
+    ("q8_layer_head_fused", "fun_asr_gguf_tpu_torch/csrc/q8_layer_fused.cu",
+     "fun_asr_gguf_tpu/ops/quant_matmul.py:953"),
+    ("q8_decode_all", "fun_asr_gguf_tpu_torch/csrc/q8_decode_all.cu",
+     "fun_asr_gguf_tpu/ops/quant_matmul.py:1970"),
 ]
 
 
@@ -444,7 +622,9 @@ def reference_check(engines, ckpt):
     encoder and CTC logits; then per decoder (the default int8 weights, the
     int8 KV cache, bf16 weights and the fused q8_0 weights) prefill
     logits, two teacher-forced decode steps and one verify step of 9
-    tokens (spec_k = 8); the bf16 decoder gives prefill logits only."""
+    tokens (spec_k = 8); the bf16 decoder gives prefill logits only, the
+    all-layers (K5) decoder prefill and decode steps (its head-major cache
+    takes no verify step)."""
     from fun_asr_gguf_tpu_torch.frontend import frontend_constants
     from fun_asr_gguf_tpu_torch.models import (adaptor, audio_encoder,
                                                generate, loaders, qwen3)
@@ -455,17 +635,23 @@ def reference_check(engines, ckpt):
                                                        torch.float32)
     dense = loaders.load_checkpoint(ckpt, dev, torch.bfloat16,
                                     llm_keep_quantized=False)[4]
-    decoders = [("int8", m.llm_params, False, 3),
+    # (label, params, int8 cache, decode steps, verify step)
+    decoders = [("int8", m.llm_params, False, True, True),
                 ("int8 kv8", engines["int8 kv8"].models.llm_params,
-                 True, 3),
-                ("bf16", qwen3.pack_qwen3_params(dense), False, 0),
-                ("q8_0 fused", engines["q8_0"].models.llm_params, False, 3)]
+                 True, True, True),
+                ("bf16", qwen3.pack_qwen3_params(dense), False, False, False),
+                ("q8_0 fused", engines["q8_0"].models.llm_params, False, True,
+                 True),
+                ("q8_0 mega", engines["q8_0 mega"].models.llm_params, False,
+                 True, False)]
     if not (isinstance(m.llm_params["layers"]["qkv_w"],
                        qwen3.Int8Weight) and "lm_head_i8" in m.llm_params):
         raise RuntimeError("the default engine does not hold int8 weights "
                            "and the int8 head")
     if "q8_fused" not in engines["q8_0"].models.llm_params:
         raise RuntimeError("the q8_0 engine's params are not fused")
+    if "q8_mega" not in engines["q8_0 mega"].models.llm_params:
+        raise RuntimeError("the mega engine's params are not marked")
     rng = np.random.default_rng(1)
     audio = (0.05 * rng.normal(size=(1, 3 * 16000))).astype(np.float32)
     n = torch.tensor([audio.shape[1]])
@@ -485,7 +671,7 @@ def reference_check(engines, ckpt):
             outs[side].update(encoder=e, embd=embd,
                               ctc_logits=adaptor.ctc_logits_forward(
                                   p_ctc, e.to(dtype), cfg.ctc))
-    for label, p_card, kv8, n_steps in decoders:
+    for label, p_card, kv8, decode, verify in decoders:
         for side, d, p_llm in (("ref", cpu, cpu_f32(p_card)),
                                ("card", dev, p_card)):
             with torch.inference_mode():
@@ -496,7 +682,9 @@ def reference_check(engines, ckpt):
                     p_llm, emb, mask, torch.Generator(device=d).manual_seed(0),
                     cfg.llm, max_len=64, kv_int8=kv8)
                 got = {f"{label} prefill": state.logits}
-                if n_steps:
+                if state.kv.head_major != (label == "q8_0 mega"):
+                    raise RuntimeError(f"{label}: unexpected cache layout")
+                if decode:
                     for k, tok in enumerate((11, 22)):
                         emb = qwen3.embed_tokens(
                             p_llm, torch.tensor([tok], device=d))
@@ -505,6 +693,7 @@ def reference_check(engines, ckpt):
                                 p_llm, state.kv, emb, 48 + k,
                                 state.prompt_len + k, state.valid_from,
                                 cfg.llm)[0]
+                if verify:
                     got[f"{label} verify"] = qwen3.qwen3_verify_step(
                         p_llm, state.kv, qwen3.embed_tokens(
                             p_llm, verify_ids.to(d)),
@@ -557,59 +746,78 @@ def count_verify_rounds(models):
 # random weights, PR 2's runs); far fewer rounds mean the guardrail held
 MIN_VERIFY_ROUNDS = 64
 
+def per_step(**counts):
+    """Launches of one decode step / verify round: 0 for unnamed kernels."""
+    return {name: counts.get(name, 0) for name, _, _ in KERNELS}
+
+
+MEGA = "q8_0 mega"     # its params get fuse_qwen3_params_q8_mega
 # The engines of phase 4: how each is built, its transcriptions
-# (temperature, spec_min_accept; None keeps the engine's 1.35), and the
-# launches one decode step and one verify round must make (28 layers)
+# (temperature, spec_min_accept; None keeps the engine's 1.35), the
+# launches one decode step and one verify round must make (28 layers),
+# and the environment its runs and steps see
 ENGINES = [
-    ("int8", {}, [(0.0, None)],
-     {"q8_matmul": 0, "flash_decode": 28, "flash_decode_i8": 0,
-      "flash_attention": 0, "q8_layer_fused": 0}),
+    ("int8", {}, [(0.0, None)], per_step(flash_decode=28), {}),
     ("int8 kv8", {"kv_cache_dtype": "int8"}, [(0.0, None), (0.4, 0.0)],
-     {"q8_matmul": 0, "flash_decode": 0, "flash_decode_i8": 28,
-      "flash_attention": 0, "q8_layer_fused": 0}),
+     per_step(flash_decode_i8=28), {}),
     ("q8_0", {"llm_weight_format": "q8_0"},
      [(0.0, None), (0.4, None), (0.4, 0.0)],
-     {"q8_matmul": 2, "flash_decode": 28, "flash_decode_i8": 0,
-      "flash_attention": 0, "q8_layer_fused": 28}),
+     per_step(q8_matmul=2, flash_decode=28, q8_layer_fused=28), {}),
+    ("q8_0 head", {"llm_weight_format": "q8_0"}, [(0.0, None)],
+     per_step(q8_matmul=1, flash_decode=28, q8_layer_fused=27,
+              q8_layer_head_fused=1), FUSED_HEAD),
+    (MEGA, {"llm_weight_format": "q8_0", "speculative": False},
+     [(0.0, None)], per_step(q8_decode_all=1), {}),
 ]
 
 
 def phase_e2e(dev):
     from fun_asr_gguf_tpu_torch import create_asr_engine
+    from fun_asr_gguf_tpu_torch.models.qwen3 import fuse_qwen3_params_q8_mega
     from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
                                             quant_matmul)
     mods = {"q8_matmul": (quant_matmul, "launches"),
             "flash_decode": (flash_decode, "launches"),
             "flash_decode_i8": (flash_decode, "launches_i8"),
             "flash_attention": (flash_attention, "launches"),
-            "q8_layer_fused": (quant_matmul, "fused_launches")}
+            "q8_layer_fused": (quant_matmul, "fused_launches"),
+            "q8_layer_head_fused": (quant_matmul, "head_fused_launches"),
+            "q8_decode_all": (quant_matmul, "mega_launches")}
     launches = dict.fromkeys(mods, 0)
     engines = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         ckpt, wav, cfg = write_inputs(root)
         try:
-            for name, kwargs, _, _ in ENGINES:
+            for name, kwargs, _, _, _ in ENGINES:
                 t0 = time.perf_counter()
                 # the facade as a user calls it: the card is the default
                 engines[name] = create_asr_engine(ckpt, verbose=False,
                                                   **kwargs)
+                if name == MEGA:
+                    m = engines[name].models
+                    m.llm_params = fuse_qwen3_params_q8_mega(m.llm_params,
+                                                             cfg.llm)
                 c = engines[name].models.config
                 log(f"[4] engine {name} {kwargs}: init (load, quantize, "
                     f"warm-up) {time.perf_counter() - t0:.1f} s; weight "
                     f"format {engines[name].models.weight_format}, kv "
                     f"{c.kv_cache_dtype}, speculative={c.speculative} "
                     f"spec_k={c.spec_k} spec_min_accept={c.spec_min_accept}"
-                    f" fuse_projections={c.fuse_projections}")
+                    f" fuse_projections={c.fuse_projections} q8_mega="
+                    f"{'q8_mega' in engines[name].models.llm_params}")
             reference_check(engines, ckpt)
-            for name, _, runs, _ in ENGINES:
-                path = transcribe_runs(engines[name], name, wav, runs, mods)
+            for name, _, runs, _, env in ENGINES:
+                with env_vars(env):
+                    path = transcribe_runs(engines[name], name, wav, runs,
+                                           mods)
                 for k, v in path.items():
                     launches[k] += v
             missing = [k for k, v in launches.items() if v <= 0]
             if missing:
                 raise RuntimeError(f"main path never launched {missing}")
-            for name, _, _, want in ENGINES:
-                step_launches(engines[name], name, mods, want)
+            for name, _, _, want, env in ENGINES:
+                with env_vars(env):
+                    step_launches(engines[name], name, mods, want)
             decode_step_ms(engines)
         finally:
             for eng in engines.values():
@@ -689,8 +897,8 @@ def check_result(res):
 
 
 def step_launches(engine, name, mods, want):
-    """Kernel launches of one decode step and of one verify round of an
-    engine against what its path must launch."""
+    """Kernel launches of one decode step and, for a speculative engine, of
+    one verify round of an engine against what its path must launch."""
     m = engine.models
     p = np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32)
     state = m.prefill(p, rng_seed=0)
@@ -698,28 +906,32 @@ def step_launches(engine, name, mods, want):
     _reset(mods)
     m.generate(state, 0.0, 1.0, 50, chunk_len=64, limit=1)
     torch.cuda.synchronize()
-    step = _counts(mods)
-    sstate = m.spec_prepare(m.prefill(p, rng_seed=0))
-    draft = torch.full((1, m.config.spec_draft_len), -1, dtype=torch.int64,
-                       device=m.device)
-    torch.cuda.synchronize()
-    _reset(mods)
-    m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=64, limit=1)
-    torch.cuda.synchronize()
-    verify = _counts(mods)
+    step = verify = _counts(mods)
+    if m.config.speculative:
+        sstate = m.spec_prepare(m.prefill(p, rng_seed=0))
+        draft = torch.full((1, m.config.spec_draft_len), -1,
+                           dtype=torch.int64, device=m.device)
+        torch.cuda.synchronize()
+        _reset(mods)
+        m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=64, limit=1)
+        torch.cuda.synchronize()
+        verify = _counts(mods)
     log(f"[4] {name}: launches per decode step {step}, per verify round "
-        f"(9 rows) {verify}; expected {want}")
+        f"(9 rows) {verify if m.config.speculative else '(no speculation)'}"
+        f"; expected {want}")
     if step != want or verify != want:
         raise RuntimeError(f"a decode step or verify round of {name} did "
                            "not run its path's kernels")
 
 
 def decode_step_ms(engines, steps=64):
-    """ms per decode step (64-step greedy chunk) of every engine and of the
-    q8_0 weights unfused, in turns and back; ms per verify round (spec_k =
-    8, empty draft) of every engine."""
+    """ms per decode step (64-step greedy chunk) of every engine (the
+    fused-head engine under its knob, the all-layers engine on its own
+    params) and of the q8_0 weights unfused, in turns and back; ms per
+    verify round (spec_k = 8, empty draft) of every speculative engine."""
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
     q8 = engines["q8_0"].models
+    envs = {name: env for name, _, _, _, env in ENGINES}
     turns = [(name, engines[name].models, engines[name].models.llm_params)
              for name in engines]
     turns.insert(1 + list(engines).index("q8_0"), (
@@ -729,7 +941,7 @@ def decode_step_ms(engines, steps=64):
     for name, m, params in turns + turns[::-1]:
         state = m.prefill(np.zeros((200, m.hybrid_cfg.llm.hidden),
                                    np.float32), rng_seed=0)
-        with torch.inference_mode():
+        with torch.inference_mode(), env_vars(envs.get(name, {})):
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
                            chunk_len=steps, stop_tokens=m.stop_tokens,
                            limit=4)
@@ -743,17 +955,20 @@ def decode_step_ms(engines, steps=64):
     verify = {}
     for name, eng in engines.items():
         m = eng.models
+        if not m.config.speculative:
+            continue
         sstate = m.spec_prepare(m.prefill(np.zeros(
             (200, m.hybrid_cfg.llm.hidden), np.float32), rng_seed=0))
         draft = torch.full((1, m.config.spec_draft_len), -1,
                            dtype=torch.int64, device=m.device)
-        m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
-                        limit=4)
-        torch.cuda.synchronize()
-        r0, t0 = int(sstate.rounds[0]), time.perf_counter()
-        m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
-                        limit=steps)
-        torch.cuda.synchronize()
+        with env_vars(envs[name]):
+            m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
+                            limit=4)
+            torch.cuda.synchronize()
+            r0, t0 = int(sstate.rounds[0]), time.perf_counter()
+            m.spec_generate(sstate, draft, 0.0, 1.0, 50, chunk_len=steps,
+                            limit=steps)
+            torch.cuda.synchronize()
         verify[name] = (time.perf_counter() - t0) * 1e3 / max(
             int(sstate.rounds[0]) - r0, 1)
     log(f"[4] decode step (28 layers + head + sampling, eager), ms/step in "

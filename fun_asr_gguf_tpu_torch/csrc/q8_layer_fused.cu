@@ -9,7 +9,9 @@
 // Replaces the Pallas kernels fun_asr_gguf_tpu/ops/quant_matmul.py
 // q8_mlp_qkv_fused (:832; grid=(1,) body _q8_mlp_qkv_fused_body :770, staged
 // form _q8_mega_staged_call :1183) and q8_mlp_fused (:649, the same chain
-// without the next-layer stage). Numerics follow the JAX reference path
+// without the next-layer stage), and — with the final norm in next_w and
+// the 152576-row q8_0 lm_head in the qkv slot, so that qkv is the logits —
+// q8_layer_head_fused (:953, K4c). Numerics follow the JAX reference path
 // (_q8_mlp_fused_ref :623, _q8_mlp_qkv_fused_ref :814): every q*d is formed
 // in f32 and rounded to bf16 once (the Pallas bodies' bf16 rounding of d is
 // not copied); activations entering a product are bf16; sums accumulate in
@@ -20,7 +22,11 @@
 // What bounds it: bytes. One call at Qwen3-0.6B width reads 15.73 MB of
 // int8 plus 1.97 MB of f32 scales (o 1024x2048, gate_up 6144x1024, down
 // 1024x3072, next qkv 4096x1024); at m <= 16 activation rows the chain is
-// four GEMVs, whose floor is 5.3 us at the H100's 3.35 TB/s.
+// four GEMVs, whose floor is 5.3 us at the H100's 3.35 TB/s. As K4c the
+// last stage streams the head instead (152576x1024 int8 + f32 scales,
+// 175.77 MB): 11.54 + 1.44 MB of layer weights plus the head, a 0.056 ms
+// floor at m = 1. Every row offset is taken in size_t, so the head's
+// 156 M-element rows and the [m, 152576] logits index without overflow.
 //
 // Design. Every stage needs the whole previous row (the RMSNorm needs all
 // 1024 outputs of o, down needs all 3072 gated values), and blocks run in
@@ -34,7 +40,8 @@
 // rows, 16-byte int8 loads (half a q8_0 block, one scale each); the warp
 // that takes gate row j also takes up row j + f, so silu(g) * u is formed
 // in registers. Data written inside the launch is read with ld.global.cg
-// (L2), never through the read-only path.
+// (L2), never through the read-only path. The GEMV, the row RMSNorm and
+// the loads live in q8_gemv.cuh, shared with K5 (q8_decode_all.cu).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -46,12 +53,14 @@
 #include <mutex>
 #include <utility>
 
+#include "q8_gemv.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace q8;
+
 constexpr int kMaxBlocksPerSm = 2;   // fewer blocks, cheaper grid barriers
 
 struct Args {
@@ -74,90 +83,6 @@ struct Args {
   int m, qd, h, f, nq;
   float eps;
 };
-
-enum class Src { kShared, kReadOnly, kL2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float deq(int8_t q, float s) {
-  // q*d in f32, rounded to bf16 once (the reference dequant), back to f32
-  return __bfloat162float(__float2bfloat16(static_cast<float>(q) * s));
-}
-
-template <Src S>
-__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
-  if constexpr (S == Src::kShared) return *v;
-  else if constexpr (S == Src::kReadOnly) return __ldg(v);
-  else return __ldcg(v);
-}
-
-// acc[j][r] += x[r, :k] . bf16(q_j * d_j) for NR weight rows q_j, all m
-// activation rows; x rows are `k` apart. Lane partial sums (not reduced).
-template <int MT, int NR, Src S>
-__device__ __forceinline__ void rows_dot(const int8_t* const (&q)[NR],
-                                         const float* const (&d)[NR],
-                                         const __nv_bfloat16* x, int m, int k,
-                                         int lane, float (&acc)[NR][MT]) {
-#pragma unroll 2
-  for (int kk = lane * 16; kk < k; kk += 512) {
-    float w[NR][16];
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int4 qv = __ldg(reinterpret_cast<const int4*>(q[j] + kk));
-      const float s = __ldg(d[j] + (kk >> 5));
-      const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) w[j][i] = deq(qb[i], s);
-    }
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r < m) {
-        const __nv_bfloat16* xp = x + static_cast<size_t>(r) * k + kk;
-        const uint4 xv[2] = {load16<S>(xp), load16<S>(xp + 8)};
-        const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(xv);
-#pragma unroll
-        for (int j = 0; j < NR; ++j) {
-          float a = 0.f;
-#pragma unroll
-          for (int i = 0; i < 16; ++i)
-            a = fmaf(w[j][i], __bfloat162float(xb[i]), a);
-          acc[j][r] += a;
-        }
-      }
-    }
-  }
-}
-
-// nh[r, :] = bf16((x[r, :] * 1/sqrt(mean(x[r, :]^2) + eps)) * w) into shared
-// memory, one warp per row; x was written inside this launch (read via L2).
-__device__ void rms_rows_to_smem(const float* x, const __nv_bfloat16* w,
-                                 int m, int h, float eps, __nv_bfloat16* nh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < m; r += kWarps) {
-    const float* xr = x + static_cast<size_t>(r) * h;
-    float ss = 0.f;
-    for (int c = lane * 4; c < h; c += 128) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
-      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(ss) / static_cast<float>(h) + eps);
-    for (int c = lane * 4; c < h; c += 128) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
-      const uint2 wr = __ldg(reinterpret_cast<const uint2*>(w + c));
-      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(&wr);
-      __nv_bfloat16* o = nh + static_cast<size_t>(r) * h + c;
-      o[0] = __float2bfloat16((v.x * inv) * __bfloat162float(wb[0]));
-      o[1] = __float2bfloat16((v.y * inv) * __bfloat162float(wb[1]));
-      o[2] = __float2bfloat16((v.z * inv) * __bfloat162float(wb[2]));
-      o[3] = __float2bfloat16((v.w * inv) * __bfloat162float(wb[3]));
-    }
-  }
-}
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
@@ -192,62 +117,20 @@ q8_layer_fused_kernel(Args a) {
   // stage 2: act = bf16(silu(nh . gate^T) * (nh . up^T)), nh from h1
   rms_rows_to_smem(a.h1, a.post_w, m, h, a.eps, nh);
   __syncthreads();
-  for (int j = gwarp; j < f; j += nwarps) {
-    const int8_t* const q[2] = {a.gq + static_cast<size_t>(j) * h,
-                                a.gq + static_cast<size_t>(j + f) * h};
-    const float* const d[2] = {a.gd + static_cast<size_t>(j) * (h >> 5),
-                               a.gd + static_cast<size_t>(j + f) * (h >> 5)};
-    float acc[2][MT] = {};
-    rows_dot<MT, 2, Src::kShared>(q, d, nh, m, h, lane, acc);
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r < m) {
-        const float g = warp_sum(acc[0][r]);
-        const float u = warp_sum(acc[1][r]);
-        if (lane == 0)
-          a.act[static_cast<size_t>(r) * f + j] =
-              __float2bfloat16(g / (1.f + expf(-g)) * u);
-      }
-    }
-  }
+  gate_up_rows<MT>(a.gq, a.gd, nh, m, h, f, a.act, gwarp, nwarps, lane);
   grid.sync();
 
   // stage 3: out = act . down^T + h1
-  for (int j = gwarp; j < h; j += nwarps) {
-    const int8_t* const q[1] = {a.dq + static_cast<size_t>(j) * f};
-    const float* const d[1] = {a.dd + static_cast<size_t>(j) * (f >> 5)};
-    float acc[1][MT] = {};
-    rows_dot<MT, 1, Src::kL2>(q, d, a.act, m, f, lane, acc);
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r < m) {
-        const float v = warp_sum(acc[0][r]);
-        if (lane == 0) {
-          const size_t i = static_cast<size_t>(r) * h + j;
-          a.out[i] = v + __ldcg(a.h1 + i);
-        }
-      }
-    }
-  }
+  gemv_rows<MT, Src::kL2>(a.dq, a.dd, a.act, m, f, h, a.h1, a.out, h, gwarp,
+                          nwarps, lane);
   if (a.qq == nullptr) return;   // uniform over the grid: no barrier skipped
   grid.sync();
 
   // stage 4: qkv = nh2 . next_qkv^T, nh2 = the next layer's input norm of out
   rms_rows_to_smem(a.out, a.next_w, m, h, a.eps, nh);
   __syncthreads();
-  for (int j = gwarp; j < a.nq; j += nwarps) {
-    const int8_t* const q[1] = {a.qq + static_cast<size_t>(j) * h};
-    const float* const d[1] = {a.qs + static_cast<size_t>(j) * (h >> 5)};
-    float acc[1][MT] = {};
-    rows_dot<MT, 1, Src::kShared>(q, d, nh, m, h, lane, acc);
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r < m) {
-        const float v = warp_sum(acc[0][r]);
-        if (lane == 0) a.qkv[static_cast<size_t>(r) * a.nq + j] = v;
-      }
-    }
-  }
+  gemv_rows<MT, Src::kShared>(a.qq, a.qs, nh, m, h, a.nq, nullptr, a.qkv,
+                              a.nq, gwarp, nwarps, lane);
 }
 
 // Co-resident grid size of q8_layer_fused_kernel<MT> for row width h on

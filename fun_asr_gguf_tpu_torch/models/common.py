@@ -27,6 +27,14 @@ def rms_norm(x, scale, eps):
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def apply_rope(x, cos, sin):
+    """Half-split rotary embedding of x [..., D] (JAX ``qwen3.apply_rope``
+    :399); cos / sin broadcast against x."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos + rotated * sin
+
+
 def linear(x, p):
     """``x @ w (+ b)`` in the activation dtype (f32 accumulation)."""
     y = torch.matmul(x, p["w"])

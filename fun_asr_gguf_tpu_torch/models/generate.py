@@ -52,11 +52,21 @@ def prefill_init(params, embeds, attn_mask, generator: torch.Generator, cfg,
     """embeds [B, P, hidden] left-padded, attn_mask [B, P]; ``max_len`` is
     the KV capacity (>= P + n_predict); ``kv_int8`` keeps the cache in
     int8 (``qwen3.QuantKV``), and every later step and verify round
-    writes and reads it so."""
+    writes and reads it so. ``q8_mega`` params at b = 1 with a bf16 / f32
+    cache get the head-major cache of the all-layers kernel (JAX :66-73)."""
     b, p, _ = embeds.shape
     dev = embeds.device
-    logits, kv = qwen3_prefill(params, embeds, attn_mask, cfg,
-                               kv_max_len=max_len, kv_int8=kv_int8)
+    if "q8_mega" in params and b == 1 and not kv_int8:
+        # the all-layers kernel (K5) decodes from a HEAD-MAJOR cache
+        # [L, kh, S, D]; S is rounded up to a multiple of 256 as in JAX
+        max_len += -max_len % 256
+        logits, kv = qwen3_prefill(params, embeds, attn_mask, cfg,
+                                   kv_max_len=max_len)
+        kv = KVCache(k=kv.k[:, 0].transpose(1, 2).contiguous(),
+                     v=kv.v[:, 0].transpose(1, 2).contiguous())
+    else:
+        logits, kv = qwen3_prefill(params, embeds, attn_mask, cfg,
+                                   kv_max_len=max_len, kv_int8=kv_int8)
     prompt_len = attn_mask.sum(dim=1).to(torch.int64)
     return GenState(
         kv=kv, logits=logits, prompt_len=prompt_len,

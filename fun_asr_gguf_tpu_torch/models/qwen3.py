@@ -22,15 +22,24 @@ decode and verify through K4: JAX's "megacall v2" branch (:1574-1602,
 :1769-1795), one launch per layer that runs o-proj → post norm → gate_up →
 gate → down and the NEXT layer's input norm + qkv; only layer 0's qkv and
 the head stay on K1. The TPU's perm space is not ported, so the fused tree
-keeps every byte where the packed tree has it.
+keeps every byte where the packed tree has it. With ``FUNASR_Q8_FUSED_HEAD``
+set (JAX's knob, read at call time) the last layer's launch is K4c, which
+also runs the final norm and the head (JAX ``_fused_head_call`` :1182).
 
-KV cache: ``[n_layers, B, max_len, kv_heads, head_dim]`` in the compute
-dtype, or int8 values with one scale per (slot, kv head) in the compute
-dtype (:class:`QuantKV`). The prompt occupies slots ``[P - L, P)`` of a
-left-padded bucket of ``P``; generated token ``t`` lives at slot ``P + t``
-with rope position ``L + t``. Unlike the JAX program (pure functions), the
-port updates the cache IN PLACE — one [B, kh, hd] row per layer per step,
-no copy; an int8 cache quantizes each new row as it is written.
+Params carrying the ``q8_mega`` marker (:func:`fuse_qwen3_params_q8_mega`)
+decode a b = 1 step in ONE launch, K5 (JAX :1511-1546), over the
+head-major cache ``[n_layers, kv_heads, max_len, head_dim]`` that
+``generate.prefill_init`` builds for them; the verify step does not take
+that cache.
+
+KV cache: ``[n_layers, B, max_len, kv_heads, head_dim]`` (or head-major
+for K5, above) in the compute dtype, or int8 values with one scale per
+(slot, kv head) in the compute dtype (:class:`QuantKV`). The prompt
+occupies slots ``[P - L, P)`` of a left-padded bucket of ``P``; generated
+token ``t`` lives at slot ``P + t`` with rope position ``L + t``. Unlike
+the JAX program (pure functions), the port updates the cache IN PLACE —
+one [B, kh, hd] row per layer per step, no copy; an int8 cache quantizes
+each new row as it is written.
 """
 
 from typing import Any, NamedTuple
@@ -41,8 +50,9 @@ import torch
 from ..formats.quant_np import q8_0_quantize
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.quant_matmul import (Int8Weight, Q8Weight, layer, matmul_any,
+                                q8_decode_all_fused, q8_layer_head_fused,
                                 q8_mlp_fused, q8_mlp_qkv_fused)
-from .common import rms_norm
+from .common import apply_rope, rms_norm
 
 NEG_INF = -1e30
 _HEAD_PAD = 1024          # lm_head rows padded to a multiple (152576)
@@ -56,11 +66,16 @@ class QuantKV(NamedTuple):
 
 
 class KVCache(NamedTuple):
-    k: Any    # [n_layers, B, S, kv_heads, head_dim] tensor — or QuantKV
-    v: Any
+    k: Any    # [n_layers, B, S, kv_heads, head_dim] tensor — or QuantKV;
+    v: Any    # or head-major [n_layers, kv_heads, S, head_dim] (K5)
+
+    @property
+    def head_major(self) -> bool:
+        return not isinstance(self.k, QuantKV) and self.k.dim() == 4
 
     @property
     def max_len(self) -> int:
+        """S: dim 2 of [L, B, S, kh, D] and of head-major [L, kh, S, D]."""
         return (self.k.q if isinstance(self.k, QuantKV) else self.k).shape[2]
 
 
@@ -217,6 +232,41 @@ def fuse_qwen3_params_q8(params):
     return out
 
 
+def fuse_qwen3_params_q8_mega(params, cfg):
+    """Mark a fused q8_0 tree for the all-layers decode kernel (K5; JAX
+    ``qwen3.py:707``): adds ``norms_next`` (layer l's next input norm,
+    ``input_ln[l + 1]``, and the final norm last) and the ``q8_mega``
+    marker. Needs the ``q8_fused`` marker and a q8_0 ``lm_head_q``; where
+    the arch is not one the kernel computes (no qk-norm, a GQA group other
+    than 2, sliding windows, partial or scaled rope, a residual scale) the
+    params come back unchanged, as in JAX.
+
+    JAX also declines shapes its TPU stage plan cannot cut into VMEM
+    chunks (``_mega_stage_plan``, :743-747; e.g. ``Qwen3Config.tiny()``).
+    That plan is not ported, so the port marks those tiny shapes; the CUDA
+    kernel then takes head_dim 128 only and raises on others, while the
+    plain version computes any shape."""
+    if "q8_mega" in params:
+        return params
+    layers = params["layers"]
+    if (not isinstance(params.get("lm_head_q"), Q8Weight)
+            or "q8_fused" not in params
+            or "q_norm" not in layers
+            or cfg.q_heads != 2 * cfg.kv_heads
+            or cfg.sliding_pattern
+            or (cfg.rope_dim and cfg.rope_dim != cfg.head_dim)
+            or cfg.active_rope_factors
+            or cfg.rope_attn_factor != 1.0
+            or cfg.rope_global_scale != 1.0
+            or cfg.residual_scale != 1.0):
+        return params
+    out = dict(params)
+    out["norms_next"] = torch.cat([layers["input_ln"][1:],
+                                   params["final_ln"][None]], dim=0)
+    out["q8_mega"] = torch.zeros((0,), dtype=torch.int8)    # marker
+    return out
+
+
 def _layer_params(layers, l: int):
     return {k: layer(w, l) if isinstance(w, (Q8Weight, Int8Weight)) else w[l]
             for k, w in layers.items()}
@@ -234,13 +284,6 @@ def rope_cos_sin(positions, head_dim: int, theta: float, dtype):
     freqs = positions.to(torch.float32)[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
-
-
-def apply_rope(x, cos, sin):
-    """x [..., T, H, D]; cos/sin broadcastable [..., T, 1, D]."""
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return x * cos + rotated * sin
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +350,23 @@ def _fused_mlp_qkv_call(heads, x, lp, lp_next, cfg):
         lp["gate_up_w"], lp["down_w"], lp_next["qkv_w"], cfg.rms_eps)
     return (out.reshape(b, t, h).to(x.dtype),
             qkv.reshape(b, t, -1).to(x.dtype))
+
+
+def _fused_head_call(heads, x, lp, params, cfg):
+    """K4c for the last layer (JAX ``_fused_head_call`` :1182): the chain,
+    the final norm and the q8_0 head in one launch → logits [B, T, vocab]
+    f32 (padded rows sliced off), or None when the knob is off or the head
+    is not q8_0."""
+    if not isinstance(params.get("lm_head_q"), Q8Weight):
+        return None
+    b, t, h = x.shape
+    res = q8_layer_head_fused(
+        _merge_heads(heads, cfg).reshape(b * t, -1).to(torch.bfloat16),
+        x.reshape(b * t, h), lp["post_ln"], params["final_ln"], lp["o_w"],
+        lp["gate_up_w"], lp["down_w"], params["lm_head_q"], cfg.rms_eps)
+    if res is None:
+        return None
+    return res[1].reshape(b, t, -1)[..., :cfg.vocab_size]
 
 
 def _fused_mlp_call(heads, x, lp, cfg):
@@ -432,9 +492,14 @@ def verify_bias(kv: KVCache, slots, t: int, valid_from):
 
 
 def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
-    """The decoder layers over x [B, T, H] → the final-normed hidden
-    states. Layer l's T new k/v rows go to ``cache[l][index]`` BEFORE it
-    attends, so each token sees itself."""
+    """The decoder layers over x [B, T, H] → logits [B, T, vocab] f32.
+    Layer l's T new k/v rows go to ``cache[l][index]`` BEFORE it attends,
+    so each token sees itself."""
+    if kv.head_major:
+        raise ValueError(
+            "a head-major [L, kv_heads, S, D] cache is the all-layers "
+            "kernel's (q8_mega params, b = 1 decode steps); this step needs "
+            "the [L, B, S, kv_heads, D] cache")
     layers = params["layers"]
     if "q8_fused" in params:
         # JAX's megacall v2 branch: layer l's K4 call also emits layer
@@ -452,6 +517,9 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
                 x, qkv = _fused_mlp_qkv_call(heads, x, lp, lp_next, cfg)
                 lp = lp_next
             else:
+                logits = _fused_head_call(heads, x, lp, params, cfg)
+                if logits is not None:
+                    return logits
                 x = _fused_mlp_call(heads, x, lp, cfg)
     else:
         for l in range(cfg.n_layers):
@@ -463,7 +531,7 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
             heads = _attend_cache(q, kv, l, bias, cfg)
             x = x + _proj(_merge_heads(heads, cfg), lp["o_w"])
             x = x + _mlp(rms_norm(x, lp["post_ln"], cfg.rms_eps), lp)
-    return rms_norm(x, params["final_ln"], cfg.rms_eps)
+    return _logits(params, rms_norm(x, params["final_ln"], cfg.rms_eps), cfg)
 
 
 def _rope(positions, cfg, dtype):
@@ -479,12 +547,39 @@ def qwen3_decode_step(params, kv: KVCache, token_embed, slot: int, position,
     token_embed [B, H]; ``slot`` (int) is the cache slot written; position
     [B] the rope position; valid_from [B] the first valid slot. Returns
     (logits [B, vocab] f32, the same cache updated in place)."""
+    if "q8_mega" in params and token_embed.shape[0] == 1 and kv.head_major:
+        return _mega_decode_step(params, kv, token_embed, slot, position,
+                                 valid_from, cfg), kv
     x = token_embed[:, None, :]
     cos, sin = _rope(position[:, None], cfg, x.dtype)
-    x = _layer_stack(params, kv, x, cos, sin,
-                     decode_bias(kv, slot, valid_from),
-                     (slice(None), slice(slot, slot + 1)), cfg)
-    return _logits(params, x[:, 0, :], cfg), kv
+    logits = _layer_stack(params, kv, x, cos, sin,
+                          decode_bias(kv, slot, valid_from),
+                          (slice(None), slice(slot, slot + 1)), cfg)
+    return logits[:, 0], kv
+
+
+def _mega_decode_step(params, kv: KVCache, token_embed, slot: int, position,
+                      valid_from, cfg):
+    """The b = 1 step through K5 (JAX :1511-1546): the kernel attends the
+    current token in registers and returns its k/v rows, written here at
+    ``slot`` in the cache's dtype. The bias hides the slot itself
+    (``valid_from <= j < slot``)."""
+    layers = params["layers"]
+    x0 = token_embed.to(torch.float32)
+    nhb0 = rms_norm(x0, layers["input_ln"][0], cfg.rms_eps).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(position, cfg.head_dim, cfg.rope_theta,
+                            torch.float32)
+    j = torch.arange(kv.max_len, device=x0.device)
+    bias = torch.where((j >= valid_from[0]) & (j < slot), 0.0, NEG_INF).to(
+        torch.float32)[None]
+    logits, k_new, v_new = q8_decode_all_fused(
+        x0, nhb0, layers["post_ln"], params["norms_next"], layers["q_norm"],
+        layers["k_norm"], cos, sin, bias, kv.k, kv.v, layers["qkv_w"],
+        layers["o_w"], layers["gate_up_w"], layers["down_w"],
+        params["lm_head_q"], cfg.rms_eps)
+    kv.k[:, :, slot] = k_new.to(kv.k.dtype)
+    kv.v[:, :, slot] = v_new.to(kv.v.dtype)
+    return logits[:, :cfg.vocab_size]
 
 
 def qwen3_verify_step(params, kv: KVCache, token_embeds, slots, positions,
@@ -502,6 +597,6 @@ def qwen3_verify_step(params, kv: KVCache, token_embeds, slots, positions,
     cos, sin = _rope(positions, cfg, token_embeds.dtype)
     rows = torch.arange(b, device=slots.device)[:, None]
     cols = slots[:, None] + torch.arange(t, device=slots.device)[None, :]
-    x = _layer_stack(params, kv, token_embeds, cos, sin,
-                     verify_bias(kv, slots, t, valid_from), (rows, cols), cfg)
-    return _logits(params, x, cfg), kv
+    return _layer_stack(params, kv, token_embeds, cos, sin,
+                        verify_bias(kv, slots, t, valid_from), (rows, cols),
+                        cfg), kv

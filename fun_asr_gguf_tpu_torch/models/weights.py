@@ -18,7 +18,10 @@ of tensors, and a JAX ``KVCache`` (bf16, or ``QuantKV`` halves) the port's
 A tree that went through the JAX ``fuse_qwen3_params_q8`` (``qwen3.py:657``)
 also lives in the TPU's perm space: o / gate_up (each half) / down have
 block-permuted OUTPUT channels and the norm weights are block-permuted.
-:func:`q8_fused_from_jax` undoes both and gives the port's fused tree.
+:func:`q8_fused_from_jax` undoes both and gives the port's fused tree;
+:func:`q8_mega_from_jax` also carries the ``fuse_qwen3_params_q8_mega``
+tree's ``norms_next`` across. A JAX head-major cache goes through
+:func:`kv_from_jax` as any other.
 """
 
 import numpy as np
@@ -63,6 +66,19 @@ def q8_fused_from_jax(tree, device=None, dtype=torch.float32):
     out["layers"] = layers
     out["final_ln"] = block_unpermute(np.asarray(tree["final_ln"]))
     return fuse_qwen3_params_q8(to_torch(out, device, dtype))
+
+
+def q8_mega_from_jax(tree, device=None, dtype=torch.float32):
+    """A JAX ``fuse_qwen3_params_q8_mega`` tree (as numpy) → the port's:
+    :func:`q8_fused_from_jax`, then ``norms_next`` back in natural order
+    and the ``q8_mega`` marker (:func:`..qwen3.fuse_qwen3_params_q8_mega`)."""
+    out = q8_fused_from_jax({k: v for k, v in tree.items()
+                             if k not in ("norms_next", "q8_mega")},
+                            device, dtype)
+    out["norms_next"] = to_torch(block_unpermute(np.asarray(
+        tree["norms_next"])), device, dtype)
+    out["q8_mega"] = torch.zeros((0,), dtype=torch.int8)
+    return out
 
 
 def _fields(x):

@@ -1,12 +1,14 @@
-"""K1: q8_0 dequant-matmul, K4: the fused per-layer q8_0 chain, plus the
-weight representation and dispatch.
+"""K1: q8_0 dequant-matmul, K4 / K4c: the fused per-layer q8_0 chain (with
+the next layer's qkv, or with the final norm and the head), K5: the whole
+b = 1 q8_0 decode step, plus the weight representation and dispatch.
 
 Counterpart of ``fun_asr_gguf_tpu/ops/quant_matmul.py`` (``quant_matmul``
 :176, ``_quant_matmul_impl`` :206, ``quant_matmul_indexed`` :303,
-``q8_mlp_fused`` :649, ``q8_mlp_qkv_fused`` :832 and ``matmul_any``
-:1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1) and
-``csrc/q8_layer_fused.cu`` (K4); their source notes say what bounds them on
-the H100 and what their designs do about it.
+``q8_mlp_fused`` :649, ``q8_mlp_qkv_fused`` :832, ``q8_layer_head_fused``
+:953, ``q8_decode_all_fused`` :1970 and ``matmul_any`` :1690). The CUDA
+kernels are ``csrc/q8_matmul.cu`` (K1), ``csrc/q8_layer_fused.cu`` (K4 and
+K4c) and ``csrc/q8_decode_all.cu`` (K5); their source notes say what bounds
+them on the H100 and what their designs do about it.
 
 Weights stay in the GGUF q8_0 form: ``Q8Weight(q=[..., n, k] int8,
 d=[..., n, k/32] f32)`` in NATURAL k order — the TPU's block-permuted lane
@@ -24,15 +26,20 @@ Dispatch is by device only: a CPU tensor takes :func:`q8_matmul_plain`; a
 CUDA tensor launches the kernel or raises on a layout it does not take.
 """
 
+import os
 from typing import NamedTuple
 
 import torch
 
+from ..models.common import apply_rope
+
 BLOCK = 32
 FUSED_MAX_ROWS = 16   # K4 serves decode (m = 1) and verify (m = spec_k + 1)
 
-launches = 0          # K1 launches since the last reset (plain int)
-fused_launches = 0    # K4 launches since the last reset
+launches = 0              # K1 launches since the last reset (plain int)
+fused_launches = 0        # K4 launches since the last reset
+head_fused_launches = 0   # K4c launches (K4 with the head in the qkv slot)
+mega_launches = 0         # K5 launches
 
 
 class Q8Weight(NamedTuple):
@@ -169,9 +176,41 @@ def q8_mlp_fused(xm, resid, post_w, o_w: Q8Weight, gu_w: Q8Weight,
                          eps)[0]
 
 
+def q8_layer_head_fused_plain(xm, resid, post_w, final_w, o_w: Q8Weight,
+                              gu_w: Q8Weight, down_w: Q8Weight,
+                              head_w: Q8Weight, eps: float):
+    """Plain version of K4c (JAX ``q8_layer_head_fused(use_pallas=False)``
+    :990-995): :func:`q8_mlp_qkv_fused_plain` with the final norm and the
+    q8_0 head in the next-layer slot → (new residual [m, h] f32, logits
+    [m, vocab_pad] f32)."""
+    return q8_mlp_qkv_fused_plain(xm, resid, post_w, final_w, o_w, gu_w,
+                                  down_w, head_w, eps)
+
+
+def q8_layer_head_fused(xm, resid, post_w, final_w, o_w: Q8Weight,
+                        gu_w: Q8Weight, down_w: Q8Weight, head_w: Q8Weight,
+                        eps: float):
+    """The last layer's chain, its final norm and the q8_0 head in one
+    launch on CUDA (K4c: K4 with ``final_w`` as the next norm and the head
+    as the next qkv) → (new residual, logits), see
+    :func:`q8_layer_head_fused_plain`; ``None`` unless
+    ``FUNASR_Q8_FUSED_HEAD`` is set and not ``"0"`` (JAX's knob for the
+    last layer's kernel path, read at call time as in ``quant_matmul.py:
+    996-1003``). The knob decides on both devices, so the CPU runs the
+    path the card runs; JAX on the CPU (``use_pallas=False``) takes its
+    fused reference whatever the knob says."""
+    if os.environ.get("FUNASR_Q8_FUSED_HEAD", "0") == "0":
+        return None
+    if xm.device.type == "cpu":
+        return q8_layer_head_fused_plain(xm, resid, post_w, final_w, o_w,
+                                         gu_w, down_w, head_w, eps)
+    return _launch_fused(xm, resid, post_w, final_w, o_w, gu_w, down_w,
+                         head_w, eps, head=True)
+
+
 def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
-                  next_qkv_w, eps):
-    global fused_launches
+                  next_qkv_w, eps, head=False):
+    global fused_launches, head_fused_launches
     from ..kernels import build
     if xm.dim() != 2 or resid.dim() != 2:
         raise ValueError(f"q8 layer chain takes xm [m, qd] and resid [m, h], "
@@ -229,8 +268,178 @@ def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
         build.ptr(h1), build.ptr(act), build.ptr(out), build.ptr(qkv),
         m, qd, h, f, nq, float(eps), build.stream_ptr(dev))
     build.check(code, "q8_layer_fused")
-    fused_launches += 1
+    if head:
+        head_fused_launches += 1
+    else:
+        fused_launches += 1
     return out, qkv
+
+
+def q8_decode_all_fused_plain(x0, nhb0, post_lns, norms_next, q_norms,
+                              k_norms, cos, sin, bias_row, kv_k, kv_v,
+                              qkv_w: Q8Weight, o_w: Q8Weight, gu_w: Q8Weight,
+                              down_w: Q8Weight, head_w: Q8Weight,
+                              eps: float):
+    """Plain version of K5 (JAX ``_q8_decode_all_kernel`` :1773 in natural
+    order), step by step: per layer the packed qkv, qk-norm and rope in f32,
+    GQA attention of the current token (f32 score, f32 value) and the
+    cached slots (bf16 q, k, v, probabilities rounded to bf16 for p.v, one
+    exact softmax with the f32 sum), o + residual, post norm, gate_up, SiLU
+    gate, down + residual and ``norms_next[l]``; the residual stays f32;
+    then the head. Returns (logits [1, vocab_pad] f32, k_new, v_new
+    [L, kh, D] f32)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_layers, kh, _, hd = kv_k.shape
+    qd = o_w.q.shape[-1]
+    group = qd // hd // kh
+    ffn = down_w.q.shape[-1]
+    scale = hd ** -0.5
+    cos, sin = cos.to(f32), sin.to(f32)
+    bias = bias_row.to(f32)
+    res, nh = x0.to(f32), nhb0
+    k_new, v_new = [], []
+    for l in range(n_layers):
+        qkv = q8_matmul_plain(nh, layer(qkv_w, l))[0]
+        q = qkv[:qd].reshape(kh * group, hd)
+        k = qkv[qd:qd + kh * hd].reshape(kh, hd)
+        v = qkv[qd + kh * hd:].reshape(kh, hd)
+        q = apply_rope(_rms_f32(q, q_norms[l], eps), cos, sin)
+        k = apply_rope(_rms_f32(k, k_norms[l], eps), cos, sin)
+        k_new.append(k)
+        v_new.append(v)
+        qg = q.reshape(kh, group, hd)
+        s_cur = (qg * k[:, None]).sum(-1) * scale                # [kh, g]
+        s = torch.einsum("kgd,ksd->kgs", qg.to(bf16).to(f32),
+                         kv_k[l].to(bf16).to(f32)) * scale + bias
+        m = torch.maximum(s.amax(-1), s_cur)
+        p, p_cur = torch.exp(s - m[..., None]), torch.exp(s_cur - m)
+        acc = (torch.einsum("kgs,ksd->kgd", p.to(bf16).to(f32),
+                            kv_v[l].to(bf16).to(f32))
+               + p_cur[..., None] * v[:, None])
+        xm = (acc / (p.sum(-1) + p_cur)[..., None]).reshape(1, qd)
+        h1 = q8_matmul_plain(xm, layer(o_w, l)) + res
+        gu = q8_matmul_plain(_rms_f32(h1, post_lns[l], eps), layer(gu_w, l))
+        act = torch.nn.functional.silu(gu[:, :ffn]) * gu[:, ffn:]
+        res = q8_matmul_plain(act, layer(down_w, l)) + h1
+        nh = _rms_f32(res, norms_next[l], eps)
+    return (q8_matmul_plain(nh, head_w), torch.stack(k_new),
+            torch.stack(v_new))
+
+
+def q8_decode_all_fused(x0, nhb0, post_lns, norms_next, q_norms, k_norms,
+                        cos, sin, bias_row, kv_k, kv_v, qkv_w: Q8Weight,
+                        o_w: Q8Weight, gu_w: Q8Weight, down_w: Q8Weight,
+                        head_w: Q8Weight, eps: float):
+    """One whole b = 1 q8_0 decode step (every layer, attention and the
+    head) in ONE launch on CUDA (K5; JAX ``q8_decode_all_fused`` :1970).
+
+    x0 [1, H] f32 (the token embedding); nhb0 [1, H] bf16 (its layer-0
+    input norm); post_lns / norms_next [L, H] (``norms_next[l]`` is layer
+    l+1's input norm, the last the final norm); q_norms / k_norms [L, D];
+    cos / sin [1, D] f32 for this position; bias_row [1, S] f32 (0 where a
+    cached slot is visible: ``valid_from <= j < slot``); kv_k / kv_v the
+    head-major cache [L, kh, S, D], not yet holding this token; stacked
+    q8_0 weights ``qkv_w`` [L, nq, H], ``o_w``, ``gu_w``, ``down_w`` and the
+    head ``head_w`` [vocab_pad, H]. Returns (logits [1, vocab_pad] f32,
+    k_new [L, kh, D] f32, v_new [L, kh, D] f32); the caller writes the new
+    rows at the slot. See :func:`q8_decode_all_fused_plain`."""
+    if x0.device.type == "cpu":
+        return q8_decode_all_fused_plain(x0, nhb0, post_lns, norms_next,
+                                         q_norms, k_norms, cos, sin, bias_row,
+                                         kv_k, kv_v, qkv_w, o_w, gu_w,
+                                         down_w, head_w, eps)
+    return _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms,
+                        cos, sin, bias_row, kv_k, kv_v, qkv_w, o_w, gu_w,
+                        down_w, head_w, eps)
+
+
+MEGA_HEAD_DIM = 128           # K5: 32 lanes x 4 columns per head
+
+
+def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
+                 bias_row, kv_k, kv_v, qkv_w, o_w, gu_w, down_w, head_w, eps):
+    global mega_launches
+    from ..kernels import build
+    if x0.dim() != 2 or x0.shape[0] != 1:
+        raise ValueError(f"q8_decode_all decodes one row (b = 1), got x0 "
+                         f"{tuple(x0.shape)}")
+    if kv_k.dim() != 4 or kv_v.shape != kv_k.shape:
+        raise ValueError(f"q8_decode_all takes a head-major cache [L, kh, "
+                         f"S, D], got {tuple(kv_k.shape)} and "
+                         f"{tuple(kv_v.shape)}")
+    if kv_k.dtype != torch.bfloat16 or kv_v.dtype != torch.bfloat16:
+        raise TypeError(f"q8_decode_all takes a bf16 cache, got "
+                        f"{kv_k.dtype} / {kv_v.dtype}")
+    n_layers, kh, s_len, hd = kv_k.shape
+    h = x0.shape[1]
+    qd = o_w.q.shape[-1]
+    ffn = down_w.q.shape[-1]
+    vp = head_w.q.shape[0]
+    nq = qd + 2 * kh * hd
+    if hd != MEGA_HEAD_DIM or qd != 2 * kh * hd:
+        raise ValueError(f"q8_decode_all takes head_dim {MEGA_HEAD_DIM} and "
+                         f"a GQA group of 2, got head_dim {hd}, "
+                         f"{qd // hd} query heads over {kh} kv heads")
+    weights = [(qkv_w, (n_layers, nq, h)), (o_w, (n_layers, h, qd)),
+               (gu_w, (n_layers, 2 * ffn, h)), (down_w, (n_layers, h, ffn)),
+               (head_w, (vp, h))]
+    vecs = [(nhb0, (1, h), torch.bfloat16),
+            (post_lns, (n_layers, h), torch.bfloat16),
+            (norms_next, (n_layers, h), torch.bfloat16),
+            (q_norms, (n_layers, hd), torch.bfloat16),
+            (k_norms, (n_layers, hd), torch.bfloat16),
+            (x0, (1, h), torch.float32), (cos, (1, hd), torch.float32),
+            (sin, (1, hd), torch.float32),
+            (bias_row, (1, s_len), torch.float32)]
+    if (any(tuple(w.q.shape) != s or tuple(w.d.shape) != s[:-1] + (
+            s[-1] // BLOCK,) for w, s in weights)
+            or any(tuple(t.shape) != s for t, s, _ in vecs)
+            or h % BLOCK or qd % BLOCK or ffn % BLOCK):
+        raise ValueError(
+            "q8_decode_all shapes: "
+            f"weights {[(tuple(w.q.shape), tuple(w.d.shape)) for w, _ in weights]}"
+            f", vectors {[tuple(t.shape) for t, _, _ in vecs]}, cache "
+            f"{tuple(kv_k.shape)}")
+    if not all(w.q.dtype == torch.int8 and w.d.dtype == torch.float32
+               for w, _ in weights):
+        raise TypeError("q8_decode_all takes int8 q and f32 d")
+    if not all(t.dtype == dt for t, _, dt in vecs):
+        raise TypeError("q8_decode_all takes an f32 x0, cos, sin and bias "
+                        "and bf16 nhb0 and norm weights, got "
+                        f"{[t.dtype for t, _, _ in vecs]}")
+    tensors = ([kv_k, kv_v] + [t for t, _, _ in vecs]
+               + [a for w, _ in weights for a in w])
+    if not all(t.is_cuda and t.device == x0.device for t in tensors):
+        raise ValueError("q8_decode_all: all inputs must be on one CUDA "
+                         "device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q8_decode_all takes contiguous inputs")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("q8_decode_all needs 16-byte aligned inputs")
+    dev = x0.device
+    # scratch: qkv f32 [nq], res f32 [h], h1 f32 [h], xm bf16 [qd], act
+    # bf16 [f]; every size is a multiple of 32 elements, so every part
+    # starts 16-byte aligned
+    sizes = [nq * 4, h * 4, h * 4, qd * 2, ffn * 2]
+    scratch = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    offs = [scratch.data_ptr()]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + n)
+    qkv_s, res_s, h1_s, xm_s, act_s = (build.ctypes.c_void_p(o) for o in offs)
+    logits = torch.empty((1, vp), dtype=torch.float32, device=dev)
+    kv_new = torch.empty((2, n_layers, kh, hd), dtype=torch.float32,
+                         device=dev)
+    code = build.lib().q8_decode_all(
+        *(build.ptr(t) for t in (x0, nhb0, post_lns, norms_next, q_norms,
+                                 k_norms, cos, sin, bias_row, kv_k, kv_v)),
+        *(build.ptr(a) for w, _ in weights for a in w),
+        qkv_s, xm_s, res_s, h1_s, act_s, build.ptr(logits),
+        build.ptr(kv_new[0]), build.ptr(kv_new[1]),
+        n_layers, h, qd, ffn, kh, s_len, vp, float(eps), float(hd ** -0.5),
+        build.stream_ptr(dev))
+    build.check(code, "q8_decode_all")
+    mega_launches += 1
+    return logits, kv_new[0], kv_new[1]
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:

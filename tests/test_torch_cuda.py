@@ -269,3 +269,102 @@ def test_flash_attention_kernel_refuses_float32(dev):
     q = torch.zeros(1, 8, 64, device=dev)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q, q, torch.zeros(1, 8, device=dev))
+
+
+NV = 1536                              # a K4c head of 1536 rows
+
+
+@pytest.mark.parametrize("m", [1, 9])
+def test_q8_layer_head_fused_kernel_matches_plain(dev, m, monkeypatch):
+    xm, resid, pw, fw, o, gu, dn, _ = _chain(dev, m, seed=20 + m)
+    head = _q8(dev, NV, H, seed=m)
+    monkeypatch.setenv("FUNASR_Q8_FUSED_HEAD", "1")
+    before = (tqm.fused_launches, tqm.head_fused_launches)
+    out, logits = tqm.q8_layer_head_fused(xm, resid, pw, fw, o, gu, dn, head,
+                                          1e-6)
+    torch.cuda.synchronize()
+    assert (tqm.fused_launches, tqm.head_fused_launches) == (
+        before[0], before[1] + 1)
+    ref_out, ref_logits = tqm.q8_layer_head_fused_plain(
+        xm, resid, pw, fw, o, gu, dn, head, 1e-6)
+    assert logits.shape == (m, NV)
+    assert _rel_err(out, ref_out) < K4_TOL
+    assert _rel_err(logits, ref_logits) < K4_TOL
+    monkeypatch.setenv("FUNASR_Q8_FUSED_HEAD", "0")
+    assert tqm.q8_layer_head_fused(xm, resid, pw, fw, o, gu, dn, head,
+                                   1e-6) is None
+
+
+def _mega(dev, seed, s_len=256, kh=2, q_heads=4, layers=2, h=256, ffn=512,
+          vp=2048, b=1, cache_dtype=torch.bfloat16, visible=(0, None)):
+    """K5's inputs at small widths; cached slots [visible) are unmasked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf, hd = torch.bfloat16, 128
+    qd = q_heads * hd
+
+    def q8(*shape):
+        return tqm.Q8Weight(
+            torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8),
+            (torch.rand(*shape[:-1], shape[-1] // 32, generator=g,
+                        device=dev) * 2e-3 + 1e-3).half().float())
+
+    def norm(*shape):
+        return (1 + 0.1 * torch.randn(*shape, generator=g, device=dev)).to(bf)
+
+    x0 = torch.randn(b, h, generator=g, device=dev)
+    nhb0 = (x0 * torch.rsqrt(x0.square().mean(-1, keepdim=True) + 1e-6)
+            ).to(bf)
+    pos = torch.tensor([float(s_len)], device=dev)
+    inv = 1.0 / (1e4 ** (torch.arange(64, device=dev) / 64))
+    ang = torch.cat([pos * inv, pos * inv])[None]
+    j = torch.arange(s_len, device=dev)
+    lo, hi = visible
+    bias = torch.where((j >= lo) & (j < (s_len if hi is None else hi)), 0.0,
+                       -1e30).float()[None]
+    kc = torch.randn(layers, kh, s_len, hd, generator=g, device=dev).to(
+        cache_dtype)
+    vc = torch.randn(layers, kh, s_len, hd, generator=g, device=dev).to(
+        cache_dtype)
+    nq = qd + 2 * kh * hd
+    return (x0, nhb0, norm(layers, h), norm(layers, h), norm(layers, hd),
+            norm(layers, hd), ang.cos(), ang.sin(), bias, kc, vc,
+            q8(layers, nq, h), q8(layers, h, qd), q8(layers, 2 * ffn, h),
+            q8(layers, h, ffn), q8(vp, h), 1e-6)
+
+
+def _cos_sim(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+# two layers of K4's bf16 rounding points, then exp and the attention
+# sums in another order
+K5_TOL = 2e-2
+
+
+@pytest.mark.parametrize("s_len,visible", [(256, (0, None)), (300, (7, 290)),
+                                           (1024, (40, 700))])
+def test_q8_decode_all_kernel_matches_plain(dev, s_len, visible):
+    args = _mega(dev, seed=s_len, s_len=s_len, visible=visible)
+    before = tqm.mega_launches
+    logits, k_new, v_new = tqm.q8_decode_all_fused(*args)
+    torch.cuda.synchronize()
+    assert tqm.mega_launches == before + 1
+    ref = tqm.q8_decode_all_fused_plain(*args)
+    assert logits.shape == (1, 2048) and k_new.shape == (2, 2, 128)
+    assert torch.isfinite(logits).all()
+    assert _rel_err(logits, ref[0]) < K5_TOL
+    assert _cos_sim(logits, ref[0]) > 0.9999
+    assert _rel_err(k_new, ref[1]) < K5_TOL
+    assert _rel_err(v_new, ref[2]) < K5_TOL
+
+
+def test_q8_decode_all_kernel_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError):                       # b = 2
+        tqm.q8_decode_all_fused(*_mega(dev, seed=1, b=2))
+    with pytest.raises(ValueError):                       # GQA group 4
+        tqm.q8_decode_all_fused(*_mega(dev, seed=1, kh=1))
+    with pytest.raises(TypeError):                        # f32 cache
+        tqm.q8_decode_all_fused(*_mega(dev, seed=1,
+                                       cache_dtype=torch.float32))
