@@ -12,7 +12,9 @@ with ``torch.profiler`` after an unprofiled warm-up run of that window:
 - 16 decode steps of q8_0 weights on the fused path (K4), greedy and at
   T = 0.4, 16 greedy steps of the unfused path on the same weights, and
   16 greedy steps of the all-layers kernel (K5: the same weights through
-  ``fuse_qwen3_params_q8_mega``, head-major cache);
+  ``fuse_qwen3_params_q8_mega``, head-major cache), and 16 greedy steps of
+  the int8-dot path (K6 + K7: the unfused weights through
+  ``fuse_qwen3_params_q8i``);
 - 16 verify rounds of 9 rows (spec_k = 8) with an empty draft, greedy,
   q8_0 fused;
 - 16 decode steps of the engine's default (per-channel int8 weights and
@@ -97,7 +99,8 @@ def main():
     from fun_asr_gguf_tpu_torch.audio import load_audio
     from fun_asr_gguf_tpu_torch import create_asr_engine
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
-    from fun_asr_gguf_tpu_torch.models.qwen3 import fuse_qwen3_params_q8_mega
+    from fun_asr_gguf_tpu_torch.models.qwen3 import (
+        fuse_qwen3_params_q8_mega, fuse_qwen3_params_q8i)
 
     chip_smoke.phase_device()
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as root:
@@ -116,6 +119,7 @@ def main():
             mega = fuse_qwen3_params_q8_mega(m.llm_params, m.hybrid_cfg.llm)
             if "q8_mega" not in mega:
                 raise RuntimeError("the q8_0 params were not marked mega")
+            q8i = fuse_qwen3_params_q8i(unfused)
 
             def prefill_mega():
                 own, m.llm_params = m.llm_params, mega
@@ -153,6 +157,8 @@ def main():
                  decode(0.0, unfused), lambda: m.prefill(prompt, rng_seed=0)),
                 (f"decode {DECODE_STEPS} steps greedy, all-layers (K5)",
                  decode(0.0, mega), prefill_mega),
+                (f"decode {DECODE_STEPS} steps greedy, int8-dot (K6 + K7)",
+                 decode(0.0, q8i), lambda: m.prefill(prompt, rng_seed=0)),
                 (f"decode {DECODE_STEPS} steps T=0.4, fused (K4)",
                  decode(0.4), lambda: m.prefill(prompt, rng_seed=0)),
                 (f"verify {DECODE_STEPS} rounds of 9 rows greedy, fused",

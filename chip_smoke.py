@@ -19,9 +19,12 @@ Phases, one line each (any failure raises and exits non-zero):
    caches, K3, K4 (the fused layer chain, with and without the next-layer
    qkv stage) and K4c (the last layer's chain with the final norm and the
    152576-row head, timed beside the K4b + K1 head calls it replaces) at
-   m = 1 and m = 9 on layer views of stacked [28, n, k] weights, and K5
+   m = 1 and m = 9 on layer views of stacked [28, n, k] weights, K5
    (the whole decode step in one launch) at full width on 28-layer
-   head-major caches of S = 768 and 1024;
+   head-major caches of S = 768 and 1024, K6 (the q8_0 x q8_0 block-dot
+   product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
+   (the int8-dot layer chain, with and without the next-layer qkv) at
+   m = 1 and m = 9 on the same layer views;
 4. end-to-end transcription through ``create_asr_engine(...).transcribe()``
    of a 60 s synthetic clip on a full-width random checkpoint (70-layer
    SANM encoder + Qwen3-0.6B): the JAX facade's defaults (``auto`` →
@@ -31,8 +34,11 @@ Phases, one line each (any failure raises and exits non-zero):
    the whole clip; q8_0 weights (fused decode, K4), greedy, at the
    default temperature and with the guardrail off; the all-layers route
    (q8_0, ``speculative=False``, ``fuse_qwen3_params_q8_mega``: one K5
-   launch per step), greedy; and the fused-head route (q8_0 under
-   ``FUNASR_Q8_FUSED_HEAD=1``: K4c in the last layer), greedy. First the
+   launch per step), greedy; the fused-head route (q8_0 under
+   ``FUNASR_Q8_FUSED_HEAD=1``: K4c in the last layer), greedy; and the
+   int8-dot route (packed, unfused q8_0 through ``fuse_qwen3_params_q8i``:
+   K6 for layer 0's qkv and the head, K7 per layer), greedy and with the
+   guardrail off. First the
    card paths of those engines against the CPU f32 path on small inputs;
    then stage timings, verify rounds and each kernel's launch count per
    path; the launches of one decode step and of one verify round per
@@ -84,6 +90,10 @@ K5_TOL = 3e-2     # K4's flips through 28 layers of one f32 residual, plus
                   # <= 1.25e-2 on an H100)
 K5_COS = 0.9995   # cosine of the logits against the plain version (measured
                   # >= 0.99991)
+K6_TOL = 1e-4     # the same integer partials; the scales and the block sum
+                  # in f32, in another order
+K7_TOL = 5e-3     # as K6, and rsqrtf against the plain 1/sqrt can flip an
+                  # isolated int8 value at a .5 boundary of a quantized row
 LAYERS = 28       # Qwen3-0.6B: K4 rows cycle the layers, so L2 is cold
 # the bound of a kernel: NVIDIA's H100 SXM data sheet at 700 W (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -205,6 +215,8 @@ def phase_kernels(dev):
     rows["q8_layer_fused"] = phase_k4(dev, gen, w)
     rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w)
     rows["q8_decode_all"] = phase_k5(dev, gen, w)
+    rows["q8dot_matmul"] = phase_k6(dev, gen, w)
+    rows["q8i_layer_fused"] = phase_k7(dev, gen, w)
     del w
 
     # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
@@ -456,6 +468,109 @@ def phase_k5(dev, gen, w):
     return row
 
 
+def phase_k6(dev, gen, w):
+    """K6 at the int8-dot route's shapes: the lm_head (its 152576 rows are
+    larger than L2) and layer 0's packed qkv (timed calls cycle the
+    stacked layers, so L2 is cold) at m = 1 (decode) and m = 9 (verify),
+    on bf16 activations as the decoder passes them. No single PyTorch call
+    computes the function: ``torch._int_mm`` has no block scales."""
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+    ln = [0]
+
+    def qkv(cycle):
+        if cycle:
+            ln[0] = (ln[0] + 1) % len(w["qkv"].q)
+        return qm.Q8DotWeight(*qm.layer(w["qkv"], ln[0]))
+
+    row, worst = {}, 0.0
+    for name, weight in (("lm_head", lambda cycle: qm.Q8DotWeight(
+            *w["head"])), ("qkv", qkv)):
+        for m in (1, 9):
+            wt = weight(False)
+            n, k = wt.q.shape
+            x = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            err, rel = compare(f"K6 q8dot_matmul {name} m={m}",
+                               qm.q8dot_matmul(x, wt),
+                               qm.q8dot_matmul_plain(x, wt), K6_TOL)
+            worst = max(worst, err)
+            ms = time_ms(lambda: qm.q8dot_matmul(x, weight(True)))
+            pms = time_ms(lambda: qm.q8dot_matmul_plain(x, weight(True)),
+                          iters=10)
+            b = bound(nbytes(x, *wt) + m * n * 4, 2 * m * n * k, "int8")
+            log(f"[3] K6 q8dot_matmul {name} m={m} [{m}x{k}]x[{n}x{k}]^T: "
+                f"max_abs_err {err:.3e} rel {rel:.2e} (tol {K6_TOL:g}) "
+                f"kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}); library: no "
+                f"single call")
+            if (name, m) == ("lm_head", 1):
+                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+    row["max_abs_err"] = worst
+    return row
+
+
+def phase_k7(dev, gen, w):
+    """K7 on layer views of the stacked weights (relabelled as the q8i
+    fuse does; timed calls cycle the layers, so L2 is cold): the
+    next-layer-qkv form and the last-layer form, at m = 1 (decode) and
+    m = 9 (verify). The attention output arrives quantized in q8_0
+    columns and the f32 residual as a column, as the decoder passes
+    them."""
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+    norms = w["norms"]
+    n_layers = len(norms)
+    h, qd = w["o"].q.shape[1:]
+    ln = [0]
+
+    def args(l, with_qkv):
+        ws = [qm.Q8DotWeight(*qm.layer(w[key], l)) for key in ("o", "gu",
+                                                               "dn")]
+        nxt = qm.Q8DotWeight(*qm.layer(w["qkv"], l)) if with_qkv else None
+        return [norms[l, 0], norms[l, 1] if with_qkv else None, *ws, nxt]
+
+    def call(fn, aq, as_, res, with_qkv, cycle=True):
+        if cycle:
+            ln[0] = (ln[0] + 1) % n_layers
+        return fn(aq, as_, res, *args(ln[0], with_qkv), 1e-6,
+                  with_qkv=with_qkv)
+
+    row, worst = {}, 0.0
+    for m in (1, 9):
+        aq, as_ = qm.quantize_act_q8(torch.randn(m, qd, generator=gen,
+                                                 device=dev))
+        res = torch.randn(m, h, generator=gen, device=dev)
+        cols = (aq.t(), as_.t(), res.t())
+        for with_qkv, name in ((True, "K7 q8i_layer_fused"),
+                               (False, "K7 q8i_layer_fused (no qkv)")):
+            got = call(qm.q8i_layer_fused, *cols, with_qkv, cycle=False)
+            ref = call(qm.q8i_layer_fused_plain, *cols, with_qkv,
+                       cycle=False)
+            errs = [compare(f"{name} m={m}", g, r, K7_TOL)
+                    for g, r in zip(got, ref) if r is not None]
+            err = max(e for e, _ in errs)
+            rel = max(r for _, r in errs)
+            worst = max(worst, err)
+            ms = time_ms(lambda: call(qm.q8i_layer_fused, *cols, with_qkv))
+            pms = time_ms(lambda: call(qm.q8i_layer_fused_plain, *cols,
+                                       with_qkv), iters=10)
+            ws = [a for a in args(0, with_qkv)[2:] if a is not None]
+            nq = ws[3].q.shape[0] if with_qkv else 0
+            b = bound(nbytes(aq, as_, res, *norms[0, :1 + with_qkv],
+                             *(t for q in ws for t in q))
+                      + m * (h + nq) * 4,
+                      2 * m * sum(q.q.numel() for q in ws), "int8")
+            log(f"[3] {name} m={m} (o {h}x{qd}, gate_up "
+                f"{ws[1].q.shape[0]}x{h}, down {h}x{ws[2].q.shape[1]}"
+                f"{f', qkv {nq}x{h}' if with_qkv else ''}): max_abs_err "
+                f"{err:.3e} rel {rel:.2e} (tol {K7_TOL:g}) kernel {ms:.4f} ms "
+                f"plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}); library: no single call")
+            if with_qkv and m == 1:
+                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+    row["max_abs_err"] = worst
+    return row
+
+
 def phase_k2(dev, gen):
     """K2 (bf16 cache) and K2-i8 (int8 cache, bf16 scales) over one layer
     of a stacked 28-layer cache (timed calls cycle the layers, so the
@@ -550,6 +665,10 @@ KERNELS = [
      "fun_asr_gguf_tpu/ops/quant_matmul.py:953"),
     ("q8_decode_all", "fun_asr_gguf_tpu_torch/csrc/q8_decode_all.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1970"),
+    ("q8dot_matmul", "fun_asr_gguf_tpu_torch/csrc/q8dot_matmul.cu",
+     "fun_asr_gguf_tpu/ops/quant_matmul.py:1416"),
+    ("q8i_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8i_layer_fused.cu",
+     "fun_asr_gguf_tpu/ops/quant_matmul.py:1586"),
 ]
 
 
@@ -620,11 +739,11 @@ def reference_check(engines, ckpt):
     """The card's kernel path (bf16) against the CPU plain path (f32) on
     small inputs, the CPU path on the same weights as the card's: the
     encoder and CTC logits; then per decoder (the default int8 weights, the
-    int8 KV cache, bf16 weights and the fused q8_0 weights) prefill
-    logits, two teacher-forced decode steps and one verify step of 9
-    tokens (spec_k = 8); the bf16 decoder gives prefill logits only, the
-    all-layers (K5) decoder prefill and decode steps (its head-major cache
-    takes no verify step)."""
+    int8 KV cache, bf16 weights, the fused q8_0 weights and the int8-dot
+    q8_0 weights) prefill logits, two teacher-forced decode steps and one
+    verify step of 9 tokens (spec_k = 8); the bf16 decoder gives prefill
+    logits only, the all-layers (K5) decoder prefill and decode steps (its
+    head-major cache takes no verify step)."""
     from fun_asr_gguf_tpu_torch.frontend import frontend_constants
     from fun_asr_gguf_tpu_torch.models import (adaptor, audio_encoder,
                                                generate, loaders, qwen3)
@@ -643,7 +762,8 @@ def reference_check(engines, ckpt):
                 ("q8_0 fused", engines["q8_0"].models.llm_params, False, True,
                  True),
                 ("q8_0 mega", engines["q8_0 mega"].models.llm_params, False,
-                 True, False)]
+                 True, False),
+                (Q8I, engines[Q8I].models.llm_params, False, True, True)]
     if not (isinstance(m.llm_params["layers"]["qkv_w"],
                        qwen3.Int8Weight) and "lm_head_i8" in m.llm_params):
         raise RuntimeError("the default engine does not hold int8 weights "
@@ -652,6 +772,8 @@ def reference_check(engines, ckpt):
         raise RuntimeError("the q8_0 engine's params are not fused")
     if "q8_mega" not in engines["q8_0 mega"].models.llm_params:
         raise RuntimeError("the mega engine's params are not marked")
+    if "q8i_fused" not in engines[Q8I].models.llm_params:
+        raise RuntimeError("the q8i engine's params are not marked")
     rng = np.random.default_rng(1)
     audio = (0.05 * rng.normal(size=(1, 3 * 16000))).astype(np.float32)
     n = torch.tensor([audio.shape[1]])
@@ -752,6 +874,8 @@ def per_step(**counts):
 
 
 MEGA = "q8_0 mega"     # its params get fuse_qwen3_params_q8_mega
+Q8I = "q8_0 q8i"       # its packed params get fuse_qwen3_params_q8i
+MARKERS = ("q8_fused", "q8_mega", "q8i_fused")   # the decoder routes
 # The engines of phase 4: how each is built, its transcriptions
 # (temperature, spec_min_accept; None keeps the engine's 1.35), the
 # launches one decode step and one verify round must make (28 layers),
@@ -768,12 +892,16 @@ ENGINES = [
               q8_layer_head_fused=1), FUSED_HEAD),
     (MEGA, {"llm_weight_format": "q8_0", "speculative": False},
      [(0.0, None)], per_step(q8_decode_all=1), {}),
+    (Q8I, {"llm_weight_format": "q8_0", "fuse_projections": False},
+     [(0.0, None), (0.4, 0.0)],
+     per_step(q8dot_matmul=2, flash_decode=28, q8i_layer_fused=28), {}),
 ]
 
 
 def phase_e2e(dev):
     from fun_asr_gguf_tpu_torch import create_asr_engine
-    from fun_asr_gguf_tpu_torch.models.qwen3 import fuse_qwen3_params_q8_mega
+    from fun_asr_gguf_tpu_torch.models.qwen3 import (
+        fuse_qwen3_params_q8_mega, fuse_qwen3_params_q8i, pack_qwen3_params)
     from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
                                             quant_matmul)
     mods = {"q8_matmul": (quant_matmul, "launches"),
@@ -782,7 +910,9 @@ def phase_e2e(dev):
             "flash_attention": (flash_attention, "launches"),
             "q8_layer_fused": (quant_matmul, "fused_launches"),
             "q8_layer_head_fused": (quant_matmul, "head_fused_launches"),
-            "q8_decode_all": (quant_matmul, "mega_launches")}
+            "q8_decode_all": (quant_matmul, "mega_launches"),
+            "q8dot_matmul": (quant_matmul, "q8dot_launches"),
+            "q8i_layer_fused": (quant_matmul, "q8i_launches")}
     launches = dict.fromkeys(mods, 0)
     engines = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -793,18 +923,21 @@ def phase_e2e(dev):
                 # the facade as a user calls it: the card is the default
                 engines[name] = create_asr_engine(ckpt, verbose=False,
                                                   **kwargs)
+                m = engines[name].models
                 if name == MEGA:
-                    m = engines[name].models
                     m.llm_params = fuse_qwen3_params_q8_mega(m.llm_params,
                                                              cfg.llm)
+                elif name == Q8I:
+                    m.llm_params = fuse_qwen3_params_q8i(
+                        pack_qwen3_params(m.llm_params))
                 c = engines[name].models.config
                 log(f"[4] engine {name} {kwargs}: init (load, quantize, "
                     f"warm-up) {time.perf_counter() - t0:.1f} s; weight "
                     f"format {engines[name].models.weight_format}, kv "
                     f"{c.kv_cache_dtype}, speculative={c.speculative} "
                     f"spec_k={c.spec_k} spec_min_accept={c.spec_min_accept}"
-                    f" fuse_projections={c.fuse_projections} q8_mega="
-                    f"{'q8_mega' in engines[name].models.llm_params}")
+                    f" fuse_projections={c.fuse_projections} markers "
+                    f"{[k for k in MARKERS if k in m.llm_params]}")
             reference_check(engines, ckpt)
             for name, _, runs, _, env in ENGINES:
                 with env_vars(env):

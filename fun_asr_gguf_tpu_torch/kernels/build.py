@@ -41,6 +41,8 @@ SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
     "q8_decode_all": [_P] * 29 + [_I] * 7 + [_F, _F, _P],
+    "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8i_layer_fused": [_P] * 17 + [_I] * 5 + [_F, _P],
     "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_decode_i8": [_P] * 7 + [_I] * 6 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

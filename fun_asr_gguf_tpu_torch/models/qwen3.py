@@ -32,6 +32,14 @@ head-major cache ``[n_layers, kv_heads, max_len, head_dim]`` that
 ``generate.prefill_init`` builds for them; the verify step does not take
 that cache.
 
+Params carrying the ``q8i_fused`` marker (:func:`fuse_qwen3_params_q8i`)
+decode and verify under llama.cpp's q8_0 x q8_0 contract: JAX's "megacall
+v3" branch (:1548-1573, :1743-1768), layer 0's qkv and the head through K6
+and one K7 launch per layer (the chain of K4 with every product int8-dot
+and every intermediate f32), the residual an f32 column across the
+layers. Their prefill takes K1's dequant product on the same bytes, as
+JAX's scanned prefill does.
+
 KV cache: ``[n_layers, B, max_len, kv_heads, head_dim]`` (or head-major
 for K5, above) in the compute dtype, or int8 values with one scale per
 (slot, kv head) in the compute dtype (:class:`QuantKV`). The prompt
@@ -49,9 +57,11 @@ import torch
 
 from ..formats.quant_np import q8_0_quantize
 from ..ops.flash_decode import flash_decode_attention
-from ..ops.quant_matmul import (Int8Weight, Q8Weight, layer, matmul_any,
-                                q8_decode_all_fused, q8_layer_head_fused,
-                                q8_mlp_fused, q8_mlp_qkv_fused)
+from ..ops.quant_matmul import (Int8Weight, Q8DotWeight, Q8Weight, layer,
+                                matmul_any, q8_decode_all_fused,
+                                q8_layer_head_fused, q8_mlp_fused,
+                                q8_mlp_qkv_fused, q8i_layer_fused,
+                                quantize_act_q8)
 from .common import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -267,9 +277,69 @@ def fuse_qwen3_params_q8_mega(params, cfg):
     return out
 
 
+def fuse_qwen3_params_q8i(params):
+    """Mark a packed, unfused q8_0 tree for the int8-dot decode (K6 / K7;
+    JAX ``qwen3.py:755``): the four layer weights become
+    :class:`Q8DotWeight` and the head ``lm_head_qn`` (:func:`lm_head_q8dot`)
+    — relabelled, the same tensors — and the ``q8i_fused`` marker is
+    added. Raises where JAX raises: on a ``q8_fused`` tree, sandwich norms,
+    post-norm-only layers, MoE layers, and weights that are not packed
+    q8_0."""
+    if "q8i_fused" in params:
+        return params
+    if "q8_fused" in params:
+        raise ValueError("params already use the fused (q8_fused) "
+                         "convention; build q8i from unfused packed params")
+    layers = dict(params["layers"])
+    if "attn_post_ln" in layers:
+        raise ValueError("fuse_qwen3_params_q8i does not support "
+                         "sandwich-norm archs (gemma); use the int8/bf16 "
+                         "paths")
+    if "input_ln" not in layers:
+        raise ValueError("fuse_qwen3_params_q8i does not support "
+                         "post-norm-only archs (olmo2); use the int8/bf16 "
+                         "paths")
+    if "router_w" in layers:
+        raise ValueError("fuse_qwen3_params_q8i does not support MoE layers "
+                         "— use the int8/bf16 paths for qwen3moe decoders")
+    for key in ("qkv_w", "o_w", "gate_up_w", "down_w"):
+        w = layers.get(key)
+        if isinstance(w, Q8Weight):
+            layers[key] = Q8DotWeight(*w)
+        elif not isinstance(w, Q8DotWeight):
+            raise ValueError(
+                f"fuse_qwen3_params_q8i needs packed q8_0 params ({key})")
+    out = dict(params)
+    out["layers"] = layers
+    out["q8i_fused"] = torch.zeros((0,), dtype=torch.int8)    # marker
+    return lm_head_q8dot(out)
+
+
+def lm_head_q8dot(params):
+    """The q8_0 head ``lm_head_q`` relabelled as ``lm_head_qn``, a
+    :class:`Q8DotWeight` of the same tensors (JAX ``qwen3.py:1920``): the
+    logits then take the int8-dot contract (:func:`_logits`)."""
+    if "lm_head_qn" in params or "lm_head_q" not in params:
+        return params
+    out = dict(params)
+    out["lm_head_qn"] = Q8DotWeight(*out.pop("lm_head_q"))
+    return out
+
+
 def _layer_params(layers, l: int):
-    return {k: layer(w, l) if isinstance(w, (Q8Weight, Int8Weight)) else w[l]
+    return {k: (layer(w, l) if isinstance(w, (Q8Weight, Q8DotWeight,
+                                               Int8Weight)) else w[l])
             for k, w in layers.items()}
+
+
+def _prefill_layer_params(layers, l: int):
+    """Layer ``l`` for the prefill. JAX scans the prefill's layers, and a
+    traced layer index sends every ``QuantTensorN`` product to the dequant
+    branch at any row count (``quant_matmul.py:1711-1723``): a
+    :class:`Q8DotWeight` becomes the :class:`Q8Weight` of the same
+    tensors, whose product (K1) is that branch's."""
+    return {k: Q8Weight(*w) if isinstance(w, Q8DotWeight) else w
+            for k, w in _layer_params(layers, l).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +450,22 @@ def _fused_mlp_call(heads, x, lp, cfg):
     return out.reshape(b, t, h).to(x.dtype)
 
 
+def _q8i_layer_call(heads, x_col, lp, lp_next, cfg):
+    """K7 for layer ``lp`` (JAX ``_q8i_layer_call`` :1211): the merged
+    heads quantized to q8_0 in f32, then the chain; with ``lp_next`` also
+    that layer's input norm and qkv. ``x_col`` [H, B*T] f32 is the
+    residual column → (the new column, qkv column [n_qkv, B*T] | None)."""
+    b, t = heads.shape[0], heads.shape[2]
+    aq, as_ = quantize_act_q8(
+        _merge_heads(heads, cfg).reshape(b * t, -1).to(torch.float32))
+    nxt = lp_next is not None
+    return q8i_layer_fused(
+        aq.t(), as_.t(), x_col, lp["post_ln"],
+        lp_next["input_ln"] if nxt else None, lp["o_w"], lp["gate_up_w"],
+        lp["down_w"], lp_next["qkv_w"] if nxt else None, cfg.rms_eps,
+        with_qkv=nxt)
+
+
 def _gqa_scores(q, k, cfg):
     """q [B,T,qh,D], k [B,S,kh,D] → scores [B,qh,T,S] (f32, scaled)."""
     group = cfg.q_heads // cfg.kv_heads
@@ -418,9 +504,12 @@ def _lm_head(params, cfg):
 
 def _logits(params, x, cfg):
     """x [..., hidden] → logits [..., vocab] f32 (JAX ``_logits_raw``
-    :1945): the q8_0 head through K1 (its padded vocab rows sliced off),
-    the per-channel int8 head on bf16-rounded x with the f32 scale after
-    the product, or the dense head."""
+    :1945): the int8-dot head ``lm_head_qn`` through K6 (K1 above 16 rows)
+    or the q8_0 head through K1 (padded vocab rows sliced off), the
+    per-channel int8 head on bf16-rounded x with the f32 scale after the
+    product, or the dense head."""
+    if "lm_head_qn" in params:
+        return matmul_any(x, params["lm_head_qn"])[..., :cfg.vocab_size]
     if "lm_head_q" in params:
         return matmul_any(x, params["lm_head_q"])[..., :cfg.vocab_size]
     if "lm_head_i8" in params:
@@ -460,7 +549,7 @@ def qwen3_prefill(params, embeds, attn_mask, cfg, kv_max_len=None,
     x = embeds
     layers = params["layers"]
     for l in range(cfg.n_layers):
-        lp = _layer_params(layers, l)
+        lp = _prefill_layer_params(layers, l)
         q, k, v = _qkv(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp, cfg,
                        cos, sin)
         _kv_write(kv.k, l, (slice(None), slice(None, p)), k)
@@ -501,7 +590,28 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
             "kernel's (q8_mega params, b = 1 decode steps); this step needs "
             "the [L, B, S, kv_heads, D] cache")
     layers = params["layers"]
-    if "q8_fused" in params:
+    if "q8i_fused" in params:
+        # JAX's megacall v3 branch: layer l's K7 call also emits layer
+        # l+1's qkv, so a layer costs K2 + K7; layer 0's qkv and the head
+        # are the only K6 launches. The residual stays an f32 column
+        # [H, B*T] (a transposed view of [B*T, H] rows: no copy on CUDA)
+        b, t, h = x.shape
+        lp = _layer_params(layers, 0)
+        qkv = _proj(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp["qkv_w"])
+        x_col = x.reshape(b * t, h).to(torch.float32).t()
+        for l in range(cfg.n_layers):
+            q, k, v = _qkv_post(qkv.to(x.dtype), lp, cfg, cos, sin)
+            _kv_write(kv.k, l, index, k)
+            _kv_write(kv.v, l, index, v)
+            heads = _attend_cache(q, kv, l, bias, cfg)
+            lp_next = (_layer_params(layers, l + 1)
+                       if l + 1 < cfg.n_layers else None)
+            x_col, qkv_col = _q8i_layer_call(heads, x_col, lp, lp_next, cfg)
+            if lp_next is not None:
+                qkv = qkv_col.t().reshape(b, t, -1)
+                lp = lp_next
+        x = x_col.t().reshape(b, t, h).to(x.dtype)
+    elif "q8_fused" in params:
         # JAX's megacall v2 branch: layer l's K4 call also emits layer
         # l+1's qkv, so a layer costs K2 + K4; layer 0's qkv and the head
         # are the only K1 launches

@@ -22,12 +22,18 @@ block-permuted OUTPUT channels and the norm weights are block-permuted.
 :func:`q8_mega_from_jax` also carries the ``fuse_qwen3_params_q8_mega``
 tree's ``norms_next`` across. A JAX head-major cache goes through
 :func:`kv_from_jax` as any other.
+
+A tree that went through the JAX ``fuse_qwen3_params_q8i``
+(``qwen3.py:755``) holds ``QuantTensorN`` weights (``quant_matmul.py:
+1313``): the same ``(q, d)`` pair, but with k ALREADY in natural order.
+:func:`to_torch` cannot tell the two pairs apart and would un-permute it,
+scrambling k; :func:`q8i_from_jax` carries such a tree.
 """
 
 import numpy as np
 import torch
 
-from ..ops.quant_matmul import BLOCK, Int8Weight, Q8Weight
+from ..ops.quant_matmul import BLOCK, Int8Weight, Q8DotWeight, Q8Weight
 
 
 def block_unpermute(a: np.ndarray) -> np.ndarray:
@@ -78,6 +84,30 @@ def q8_mega_from_jax(tree, device=None, dtype=torch.float32):
     out["norms_next"] = to_torch(block_unpermute(np.asarray(
         tree["norms_next"])), device, dtype)
     out["q8_mega"] = torch.zeros((0,), dtype=torch.int8)
+    return out
+
+
+def q8i_from_jax(tree, device=None, dtype=torch.float32):
+    """A JAX ``fuse_qwen3_params_q8i`` tree (as numpy) → the port's q8i
+    tree: the natural-k layer weights and ``lm_head_qn`` become
+    :class:`Q8DotWeight` as they are (no ``block_unpermute``), everything
+    else goes through :func:`to_torch`, then the ``q8i_fused`` marker."""
+    def natural(pair):
+        q, d = pair
+        return Q8DotWeight(
+            q=torch.from_numpy(np.array(q)).to(device),
+            d=torch.from_numpy(np.array(d, dtype=np.float32)).to(device))
+    keys = ("qkv_w", "o_w", "gate_up_w", "down_w")
+    layers = tree["layers"]
+    out = to_torch({k: v for k, v in tree.items()
+                    if k not in ("layers", "lm_head_qn", "q8i_fused")},
+                   device, dtype)
+    out["layers"] = to_torch({k: v for k, v in layers.items()
+                              if k not in keys}, device, dtype)
+    out["layers"].update({k: natural(layers[k]) for k in keys})
+    if "lm_head_qn" in tree:
+        out["lm_head_qn"] = natural(tree["lm_head_qn"])
+    out["q8i_fused"] = torch.zeros((0,), dtype=torch.int8)
     return out
 
 

@@ -1,14 +1,18 @@
 """K1: q8_0 dequant-matmul, K4 / K4c: the fused per-layer q8_0 chain (with
 the next layer's qkv, or with the final norm and the head), K5: the whole
-b = 1 q8_0 decode step, plus the weight representation and dispatch.
+b = 1 q8_0 decode step, K6 / K7: the int8-dot product and layer chain,
+plus the weight representation and dispatch.
 
 Counterpart of ``fun_asr_gguf_tpu/ops/quant_matmul.py`` (``quant_matmul``
 :176, ``_quant_matmul_impl`` :206, ``quant_matmul_indexed`` :303,
 ``q8_mlp_fused`` :649, ``q8_mlp_qkv_fused`` :832, ``q8_layer_head_fused``
-:953, ``q8_decode_all_fused`` :1970 and ``matmul_any`` :1690). The CUDA
-kernels are ``csrc/q8_matmul.cu`` (K1), ``csrc/q8_layer_fused.cu`` (K4 and
-K4c) and ``csrc/q8_decode_all.cu`` (K5); their source notes say what bounds
-them on the H100 and what their designs do about it.
+:953, ``quantize_act_q8`` :1340, ``q8dot_matmul`` :1416,
+``q8i_layer_fused`` :1586, ``q8_decode_all_fused`` :1970 and ``matmul_any``
+:1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1),
+``csrc/q8_layer_fused.cu`` (K4 and K4c), ``csrc/q8_decode_all.cu`` (K5),
+``csrc/q8dot_matmul.cu`` (K6) and ``csrc/q8i_layer_fused.cu`` (K7); their
+source notes say what bounds them on the H100 and what their designs do
+about it.
 
 Weights stay in the GGUF q8_0 form: ``Q8Weight(q=[..., n, k] int8,
 d=[..., n, k/32] f32)`` in NATURAL k order — the TPU's block-permuted lane
@@ -22,8 +26,17 @@ Numerics (both versions): ``y = bf16(x) @ bf16(q * d)^T`` with the product
 output — the JAX reference path's contract. ``x`` is rounded to bf16 even
 when the caller computes in float32.
 
-Dispatch is by device only: a CPU tensor takes :func:`q8_matmul_plain`; a
-CUDA tensor launches the kernel or raises on a layout it does not take.
+A :class:`Q8DotWeight` holds the same bytes as a :class:`Q8Weight` and
+selects the other contract, llama.cpp's q8_0 x q8_0 ``vec_dot`` (JAX's
+``QuantTensorN`` path): the activations are quantized to q8_0 per 32-block
+(:func:`quantize_act_q8`), s8 x s8 partials are exact per block, both
+block scales multiply the partial, the partials are summed in f32. K6 and
+K7 compute it; above 16 rows :func:`matmul_any` takes K1's dequant product
+on the same bytes, as JAX does.
+
+Dispatch is by device only: a CPU tensor takes the plain version (e.g.
+:func:`q8_matmul_plain`); a CUDA tensor launches the kernel or raises on a
+layout it does not take.
 """
 
 import os
@@ -40,9 +53,22 @@ launches = 0              # K1 launches since the last reset (plain int)
 fused_launches = 0        # K4 launches since the last reset
 head_fused_launches = 0   # K4c launches (K4 with the head in the qkv slot)
 mega_launches = 0         # K5 launches
+q8dot_launches = 0        # K6 launches
+q8i_launches = 0          # K7 launches
 
 
 class Q8Weight(NamedTuple):
+    q: torch.Tensor   # int8 [..., n, k]   natural k order
+    d: torch.Tensor   # f32  [..., n, k // 32]
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+class Q8DotWeight(NamedTuple):
+    """The tensors of a :class:`Q8Weight`, relabelled (never copied) for
+    the int8-dot contract (JAX ``QuantTensorN`` :1313)."""
     q: torch.Tensor   # int8 [..., n, k]   natural k order
     d: torch.Tensor   # f32  [..., n, k // 32]
 
@@ -442,16 +468,258 @@ def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
     return logits, kv_new[0], kv_new[1]
 
 
+# ---------------------------------------------------------------------------
+# K6 / K7: the int8-dot contract (JAX "megacall v3", :1286-1676)
+# ---------------------------------------------------------------------------
+
+Q8DOT_MAX_ROWS = 16   # JAX's decode / verify cut (matmul_any :1711,
+                      # _logits_raw :1955): more rows take the dequant product
+
+
+def _round_away(x):
+    """Round half away from zero (JAX ``_round_away`` :1307, ggml's
+    ``roundf``)."""
+    return torch.sign(x) * torch.floor(x.abs() + 0.5)
+
+
+def quantize_act_q8(x: torch.Tensor):
+    """Activations to q8_0 rows (JAX ``quantize_act_q8`` :1340, ggml
+    ``quantize_row_q8_0``): x [m, k] → (xq [m, k] int8, xs [m, k/32] f32),
+    ``xs = amax / 127`` per 32-block and ``xq = round_away(x * (1 / xs))``
+    (0 where a block is all zero): the multiply by the reciprocal, as JAX.
+
+    The 127 is a tensor on x's device: PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, which is not the IEEE
+    quotient the kernels and JAX take."""
+    m, k = x.shape
+    xf = x.to(torch.float32).reshape(m, k // BLOCK, BLOCK)
+    amax = xf.abs().amax(dim=-1)
+    d = amax / amax.new_full((), 127.0)
+    inv = torch.where(d == 0, 0.0, 1.0 / d)
+    q = _round_away(xf * inv[..., None]).to(torch.int8)
+    return q.reshape(m, k), d
+
+
+def _block_dot(w, xq, xs):
+    """The int8-dot product in JAX's columns (``_q8i_layer_ref.dot``
+    :1560-1568, the ``_q8dot_ref`` :1410-1413 of the transposed rows):
+    weight [n, k] × q8_0 activations xq [k, m] int8 / xs [k/32, m] f32 →
+    [n, m] f32. The per-block partials are exact in f32 (|sum| < 2^24),
+    then both block scales and the f32 sum over the blocks."""
+    f32 = torch.float32
+    n, k = w.q.shape
+    nb = k // BLOCK
+    z = torch.einsum("nbt,btm->nbm", w.q.reshape(n, nb, BLOCK).to(f32),
+                     xq.reshape(nb, BLOCK, -1).to(f32))
+    return torch.einsum("nbm,nb,bm->nm", z, w.d, xs)
+
+
+def q8dot_matmul_plain(x: torch.Tensor, w) -> torch.Tensor:
+    """Plain version of K6 (JAX ``_q8dot_ref`` :1399): x [m, k] → [m, n]
+    f32 under the int8-dot contract."""
+    xq, xs = quantize_act_q8(x)
+    return _block_dot(w, xq.t(), xs.t()).t()
+
+
+def q8dot_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x [m, k] × a 2-D :class:`Q8DotWeight` (or a layer view of one)
+    → [m, n] f32, 1 <= m <= 16 on CUDA (K6, JAX ``q8dot_matmul``
+    :1416). See :func:`q8dot_matmul_plain`."""
+    if x.device.type == "cpu":
+        return q8dot_matmul_plain(x, w)
+    return _launch_q8dot(x, w)
+
+
+def _check_q8(weights, dev, name):
+    """int8 q / f32 d, contiguous, 16-byte aligned, on ``dev``."""
+    if not all(w.q.dtype == torch.int8 and w.d.dtype == torch.float32
+               for w in weights):
+        raise TypeError(f"{name} takes int8 q and f32 d, got "
+                        f"{[(w.q.dtype, w.d.dtype) for w in weights]}")
+    tensors = [t for w in weights for t in w]
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous weights")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned weights")
+
+
+def _launch_q8dot(x: torch.Tensor, w) -> torch.Tensor:
+    global q8dot_launches
+    from ..kernels import build
+    if x.dim() != 2 or w.q.dim() != 2:
+        raise ValueError(f"q8dot_matmul takes x [m, k] and q [n, k], got "
+                         f"{tuple(x.shape)} and {tuple(w.q.shape)}")
+    m, k = x.shape
+    n = w.q.shape[0]
+    if not 1 <= m <= Q8DOT_MAX_ROWS:
+        raise ValueError(f"q8dot_matmul takes 1..{Q8DOT_MAX_ROWS} rows, got "
+                         f"m={m}")
+    if w.q.shape[1] != k or k % BLOCK or tuple(w.d.shape) != (n, k // BLOCK):
+        raise ValueError(f"q8dot_matmul shape mismatch: x {tuple(x.shape)}, "
+                         f"q {tuple(w.q.shape)}, d {tuple(w.d.shape)}")
+    if not x.is_floating_point():
+        raise TypeError(f"q8dot_matmul takes float activations, got "
+                        f"{x.dtype}")
+    _check_q8([w], x.device, "q8dot_matmul")
+    xf = x.to(torch.float32).contiguous()
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    code = build.lib().q8dot_matmul(build.ptr(xf), build.ptr(w.q),
+                                    build.ptr(w.d), build.ptr(y), m, n, k,
+                                    build.stream_ptr(x.device))
+    build.check(code, "q8dot_matmul")
+    q8dot_launches += 1
+    return y
+
+
+def _rms_col(x, w, eps):
+    """Column RMSNorm (JAX ``_rms_col`` :1489): x [k, m] f32, w [k]."""
+    var = (x * x).mean(dim=0, keepdim=True)
+    return x * torch.rsqrt(var + eps) * w.to(torch.float32)[:, None]
+
+
+def _quant_cols(x):
+    """q8_0 columns (JAX ``_quant_cols`` :1495): x [k, m] f32 → (xq [k, m]
+    int8, xs [k/32, m] f32), :func:`quantize_act_q8` of the rows."""
+    xq, xs = quantize_act_q8(x.t())
+    return xq.t(), xs.t()
+
+
+def q8i_layer_fused_plain(attn_q, attn_s, resid_col, post_w, next_in_w,
+                          o_w, gu_w, down_w, next_qkv_w, eps: float,
+                          with_qkv: bool = True):
+    """Plain version of K7 (JAX ``_q8i_layer_ref`` :1550), in JAX's column
+    layout: every product under the int8-dot contract, every intermediate
+    f32 → (out_col [h, m] f32, qkv_col [nq, m] f32 | None)."""
+    h1 = _block_dot(o_w, attn_q, attn_s) + resid_col
+    gu = _block_dot(gu_w, *_quant_cols(_rms_col(h1, post_w, eps)))
+    f = gu.shape[0] // 2
+    act = torch.nn.functional.silu(gu[:f]) * gu[f:]
+    out = _block_dot(down_w, *_quant_cols(act)) + h1
+    if not with_qkv:
+        return out, None
+    return out, _block_dot(next_qkv_w,
+                           *_quant_cols(_rms_col(out, next_in_w, eps)))
+
+
+def q8i_layer_fused(attn_q, attn_s, resid_col, post_w, next_in_w, o_w,
+                    gu_w, down_w, next_qkv_w, eps: float,
+                    with_qkv: bool = True):
+    """One layer's post-attention half under the int8-dot contract (+ the
+    next layer's input norm and qkv when ``with_qkv``), in one launch on
+    CUDA (K7, JAX ``q8i_layer_fused`` :1586). JAX's layout: ``attn_q [qd,
+    m]`` int8 / ``attn_s [qd/32, m]`` f32 the merged attention output in
+    q8_0 columns, ``resid_col [h, m]`` f32, ``post_w`` / ``next_in_w [h]``;
+    2-D :class:`Q8DotWeight` s or layer views. Returns ``(out_col [h, m]
+    f32, qkv_col [nq, m] f32 | None)``. On CUDA the columns may be
+    transposed views of row-major [m, ·] tensors, as the decode passes
+    them, and the results are such views: no copy either way. See
+    :func:`q8i_layer_fused_plain`."""
+    if attn_q.device.type == "cpu":
+        return q8i_layer_fused_plain(attn_q, attn_s, resid_col, post_w,
+                                     next_in_w, o_w, gu_w, down_w,
+                                     next_qkv_w, eps, with_qkv)
+    return _launch_q8i(attn_q, attn_s, resid_col, post_w, next_in_w, o_w,
+                       gu_w, down_w, next_qkv_w, eps, with_qkv)
+
+
+def _launch_q8i(attn_q, attn_s, resid_col, post_w, next_in_w, o_w, gu_w,
+                down_w, next_qkv_w, eps, with_qkv):
+    global q8i_launches
+    from ..kernels import build
+    if with_qkv != (next_qkv_w is not None) or with_qkv != (
+            next_in_w is not None):
+        raise ValueError("q8i_layer_fused: with_qkv needs next_in_w and "
+                         "next_qkv_w, and without it both are None")
+    if attn_q.dim() != 2 or resid_col.dim() != 2:
+        raise ValueError(f"q8i_layer_fused takes attn_q [qd, m] and "
+                         f"resid_col [h, m], got {tuple(attn_q.shape)} and "
+                         f"{tuple(resid_col.shape)}")
+    qd, m = attn_q.shape
+    h = resid_col.shape[0]
+    f = down_w.q.shape[-1]
+    nq = next_qkv_w.q.shape[0] if with_qkv else 0
+    if not 1 <= m <= Q8DOT_MAX_ROWS:
+        raise ValueError(f"q8i_layer_fused takes 1..{Q8DOT_MAX_ROWS} rows, "
+                         f"got m={m}")
+    weights = [(o_w, (h, qd)), (gu_w, (2 * f, h)), (down_w, (h, f))]
+    if with_qkv:
+        weights.append((next_qkv_w, (nq, h)))
+    norms = [post_w] + ([next_in_w] if with_qkv else [])
+    if (tuple(attn_s.shape) != (qd // BLOCK, m)
+            or tuple(resid_col.shape) != (h, m)
+            or any(tuple(w.q.shape) != s
+                   or tuple(w.d.shape) != (s[0], s[1] // BLOCK)
+                   for w, s in weights)
+            or any(tuple(n.shape) != (h,) for n in norms)
+            or qd % BLOCK or h % BLOCK or f % BLOCK):
+        raise ValueError(
+            f"q8i_layer_fused shapes: attn_q {tuple(attn_q.shape)}, attn_s "
+            f"{tuple(attn_s.shape)}, resid_col {tuple(resid_col.shape)}, "
+            f"norms {[tuple(n.shape) for n in norms]}, weights "
+            f"{[(tuple(w.q.shape), tuple(w.d.shape)) for w, _ in weights]}")
+    if (attn_q.dtype != torch.int8 or attn_s.dtype != torch.float32
+            or resid_col.dtype != torch.float32):
+        raise TypeError(f"q8i_layer_fused takes int8 attn_q and f32 attn_s "
+                        f"and resid_col, got {attn_q.dtype}, {attn_s.dtype}, "
+                        f"{resid_col.dtype}")
+    if any(n.dtype != torch.bfloat16 for n in norms):
+        raise TypeError(f"q8i_layer_fused kernel takes bf16 norm weights, "
+                        f"got {[n.dtype for n in norms]}")
+    dev = attn_q.device
+    _check_q8([w for w, _ in weights], dev, "q8i_layer_fused")
+    rows = [attn_q.t().contiguous(), attn_s.t().contiguous(),
+            resid_col.t().contiguous()]       # no copy for views of rows
+    tensors = rows + norms
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("q8i_layer_fused: all inputs must be on one CUDA "
+                         "device")
+    if not all(n.is_contiguous() for n in norms):
+        raise ValueError("q8i_layer_fused takes contiguous norm weights")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("q8i_layer_fused needs 16-byte aligned inputs")
+    # scratch h1 [m, h] and act [m, f], out [m, h] and qkv [m, nq]: f32,
+    # every part a multiple of 32 elements, so each starts 16-byte aligned
+    buf = torch.empty(m * (2 * h + f + nq), dtype=torch.float32, device=dev)
+    cols = (h, f, h, nq)
+    h1, act, out, qkv = (t.view(m, c) for t, c in zip(
+        torch.split(buf, [m * c for c in cols]), cols))
+    null = build.ctypes.c_void_p(None)
+    code = build.lib().q8i_layer_fused(
+        *(build.ptr(t) for t in rows), build.ptr(post_w),
+        build.ptr(next_in_w) if with_qkv else null,
+        *(build.ptr(a) for w, _ in weights[:3] for a in w),
+        build.ptr(next_qkv_w.q) if with_qkv else null,
+        build.ptr(next_qkv_w.d) if with_qkv else null,
+        build.ptr(h1), build.ptr(act), build.ptr(out), build.ptr(qkv),
+        m, qd, h, f, nq, float(eps),
+        build.stream_ptr(dev))
+    build.check(code, "q8i_layer_fused")
+    q8i_launches += 1
+    return out.t(), (qkv.t() if with_qkv else None)
+
+
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` in f32 for a q8_0 (K1), per-channel int8 or dense weight;
-    leading batch dims on ``x`` are flattened (JAX ``matmul_any`` and
-    ``_proj``'s ``Int8Weight`` branch, ``qwen3.py:425-431``).
+    """``x @ w`` in f32 for a q8_0 (K1), int8-dot q8_0 (K6, or K1 above 16
+    rows), per-channel int8 or dense weight; leading batch dims on ``x``
+    are flattened (JAX ``matmul_any`` and ``_proj``'s ``Int8Weight``
+    branch, ``qwen3.py:425-431``).
 
     The int8 and dense products are plain PyTorch in f32: both operands
     upcast (int8 and bf16 values are exact in f32, so this is JAX's
     ``preferred_element_type=f32`` dot, without the bf16 rounding of the
     output that a bf16 ``torch.matmul`` on CUDA would add), then the int8
     weight's f32 per-channel scale."""
+    if isinstance(w, Q8DotWeight):
+        # JAX :1704-1724: decode / verify rows take the int8-dot product;
+        # more rows the dequant product bf16(x) . bf16(q * d), which is
+        # K1's contract on the same bytes
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        out = (q8dot_matmul(x2, w) if x2.shape[0] <= Q8DOT_MAX_ROWS
+               else q8_matmul(x2, Q8Weight(*w)))
+        return out.reshape(*lead, out.shape[-1])
     if isinstance(w, Q8Weight):
         lead = x.shape[:-1]
         out = q8_matmul(x.reshape(-1, x.shape[-1]), w)

@@ -368,3 +368,144 @@ def test_q8_decode_all_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):                        # f32 cache
         tqm.q8_decode_all_fused(*_mega(dev, seed=1,
                                        cache_dtype=torch.float32))
+
+
+def _q8dot(dev, n, k, seed, layers=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (layers, n, k) if layers else (n, k)
+    return tqm.Q8DotWeight(
+        torch.randint(-127, 128, shape, generator=g, device=dev,
+                      dtype=torch.int8),
+        (torch.rand(*shape[:-1], k // 32, generator=g, device=dev) * 2e-3
+         + 1e-3).half().float())
+
+
+# K6: the same integer partials; the scales and the block sum in f32, in
+# another order
+K6_TOL = 1e-4
+
+
+@pytest.mark.parametrize("m", [1, 3, 9, 16])
+@pytest.mark.parametrize("n,k", [(64, 32), (200, 96), (1000, 1024),
+                                 (37, 3072)])
+def test_q8dot_matmul_kernel_matches_plain(dev, m, n, k):
+    w = _q8dot(dev, n, k, seed=m + n)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    before = tqm.q8dot_launches
+    out = tqm.q8dot_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tqm.q8dot_launches == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert _rel_err(out, tqm.q8dot_matmul_plain(x, w)) < K6_TOL
+
+
+def test_q8dot_matmul_kernel_reads_a_stacked_layer_in_place(dev):
+    stack = _q8dot(dev, 96, 64, seed=5, layers=3)
+    x = torch.randn(2, 64, device=dev)
+    for i in range(3):
+        w = tqm.layer(stack, i)
+        assert w.q.data_ptr() == stack.q.data_ptr() + i * 96 * 64
+        assert _rel_err(tqm.q8dot_matmul(x, w),
+                        tqm.q8dot_matmul_plain(x, w)) < K6_TOL
+
+
+def test_q8dot_matmul_kernel_refuses_what_it_does_not_take(dev):
+    w = _q8dot(dev, 64, 64, seed=0)
+    with pytest.raises(ValueError):                       # m > 16
+        tqm.q8dot_matmul(torch.randn(17, 64, device=dev), w)
+    x = torch.randn(2, 64, device=dev)
+    with pytest.raises(ValueError):                       # not contiguous
+        tqm.q8dot_matmul(x, tqm.Q8DotWeight(w.q.t(), w.d))
+    with pytest.raises(TypeError):                        # f16 scales
+        tqm.q8dot_matmul(x, tqm.Q8DotWeight(w.q, w.d.half()))
+    with pytest.raises(TypeError):                        # int activations
+        tqm.q8dot_matmul(x.to(torch.int32), w)
+    with pytest.raises(ValueError):                       # mixed devices
+        tqm.q8dot_matmul(x, tqm.Q8DotWeight(w.q.cpu(), w.d.cpu()))
+
+
+def _q8i_chain(dev, m, seed, layers=None):
+    """One K7 call's inputs as the decode passes them: q8_0 columns and the
+    residual column as transposed views of row-major tensors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aq, as_ = tqm.quantize_act_q8(torch.randn(m, QD, generator=g,
+                                              device=dev))
+    resid = torch.randn(m, H, generator=g, device=dev)
+
+    def q8(n, k, s):
+        w = _q8dot(dev, n, k, seed=seed * 8 + s, layers=layers)
+        return tqm.layer(w, 1) if layers else w
+
+    def norm_w():
+        return (1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(
+            torch.bfloat16)
+
+    return (aq.t(), as_.t(), resid.t(), norm_w(), norm_w(), q8(H, QD, 1),
+            q8(2 * F, H, 2), q8(H, F, 3), q8(NQ, H, 4))
+
+
+# K7: the same integer partials and f32 intermediates; f32 sums in another
+# order and rsqrtf against the plain version's 1/sqrt can flip an isolated
+# int8 value at a .5 boundary of a quantized row, as K4's bf16 ulps flip
+K7_TOL = 5e-3
+
+
+@pytest.mark.parametrize("m", [1, 2, 9, 16])
+def test_q8i_layer_fused_kernel_matches_plain(dev, m):
+    args = _q8i_chain(dev, m, seed=m)
+    before = tqm.q8i_launches
+    out, qkv = tqm.q8i_layer_fused(*args, 1e-6)
+    last, none = tqm.q8i_layer_fused(*args[:4], None, *args[5:8], None,
+                                     1e-6, with_qkv=False)
+    torch.cuda.synchronize()
+    assert tqm.q8i_launches == before + 2 and none is None
+    ref_out, ref_qkv = tqm.q8i_layer_fused_plain(*args, 1e-6)
+    assert out.shape == (H, m) and qkv.shape == (NQ, m)
+    assert out.t().is_contiguous()        # a view of [m, H] rows
+    assert _rel_err(out, ref_out) < K7_TOL
+    assert _rel_err(qkv, ref_qkv) < K7_TOL
+    assert _rel_err(last, ref_out) < K7_TOL
+
+
+def test_q8i_layer_fused_kernel_takes_columns_and_stacked_layers(dev):
+    args = _q8i_chain(dev, 3, seed=7, layers=3)
+    assert args[5].q.data_ptr() == (args[5].q.untyped_storage().data_ptr()
+                                    + H * QD)
+    cols = [a.contiguous() for a in args[:3]] + list(args[3:])
+    assert not cols[0].t().is_contiguous()
+    ref = tqm.q8i_layer_fused_plain(*args, 1e-6)
+    for got in (tqm.q8i_layer_fused(*args, 1e-6),
+                tqm.q8i_layer_fused(*cols, 1e-6)):
+        assert _rel_err(got[0], ref[0]) < K7_TOL
+        assert _rel_err(got[1], ref[1]) < K7_TOL
+
+
+def test_q8i_layer_fused_kernel_refuses_what_it_does_not_take(dev):
+    args = _q8i_chain(dev, 17, seed=3)
+    with pytest.raises(ValueError):                       # m > 16
+        tqm.q8i_layer_fused(*args, 1e-6)
+    args = list(_q8i_chain(dev, 2, seed=3))
+    o = args[5]
+    bad = list(args)
+    bad[5] = tqm.Q8DotWeight(torch.zeros(QD, H, dtype=torch.int8,
+                                         device=dev).t(), o.d)
+    with pytest.raises(ValueError):                       # not contiguous
+        tqm.q8i_layer_fused(*bad, 1e-6)
+    bad = list(args)
+    bad[1] = args[1].half()
+    with pytest.raises(TypeError):                        # f16 scales
+        tqm.q8i_layer_fused(*bad, 1e-6)
+    bad = list(args)
+    bad[2] = args[2].to(torch.bfloat16)
+    with pytest.raises(TypeError):                        # bf16 residual
+        tqm.q8i_layer_fused(*bad, 1e-6)
+    bad = list(args)
+    bad[3], bad[4] = args[3].float(), args[4].float()
+    with pytest.raises(TypeError):                        # f32 norm weights
+        tqm.q8i_layer_fused(*bad, 1e-6)
+    bad = list(args)
+    bad[6] = tqm.Q8DotWeight(args[6].q, args[6].d.half())
+    with pytest.raises(TypeError):                        # f16 weight scales
+        tqm.q8i_layer_fused(*bad, 1e-6)
+    with pytest.raises(ValueError):                       # qkv stage halves
+        tqm.q8i_layer_fused(*args[:8], None, 1e-6)
