@@ -15,16 +15,20 @@ Phases, one line each (any failure raises and exits non-zero):
    (``scaled_dot_product_attention`` for K2 and K3) and the bound (the
    larger of bytes over 3.35 TB/s and operations over the input type's
    peak): K1 at decode (m = 1), verify (m = 9) and prefill rows, K2 and
-   K2-i8 at T = 1 and at the verify step's T = 9 on stacked 28-layer
-   caches, K3, K4 (the fused layer chain, with and without the next-layer
+   K2-i8 (split-KV) at T = 1 and at the verify step's T = 9 on stacked
+   28-layer caches, up to S = 2313, K3, K4 (the fused layer chain, with and without the next-layer
    qkv stage) and K4c (the last layer's chain with the final norm and the
    152576-row head, timed beside the K4b + K1 head calls it replaces) at
    m = 1 and m = 9 on layer views of stacked [28, n, k] weights, K5
    (the whole decode step in one launch) at full width on 28-layer
-   head-major caches of S = 768 and 1024, K6 (the q8_0 x q8_0 block-dot
+   head-major caches of S = 768 and 1024, with every slot visible and
+   with one (the attention's share is the difference), K6 (the q8_0 x q8_0 block-dot
    product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
    (the int8-dot layer chain, with and without the next-layer qkv) at
-   m = 1 and m = 9 on the same layer views;
+   m = 1 and m = 9 on the same layer views; then the probes P12 (the
+   split-KV stage alone at chunk counts 1 ... 32) and P5 (the achievable
+   stream rate of 28 layers of q8_0 bytes, summed, through the dequant
+   GEMV and with f16 scales), each against its plain version;
 4. end-to-end transcription through ``create_asr_engine(...).transcribe()``
    of a 60 s synthetic clip on a full-width random checkpoint (70-layer
    SANM encoder + Qwen3-0.6B): the JAX facade's defaults (``auto`` →
@@ -39,8 +43,10 @@ Phases, one line each (any failure raises and exits non-zero):
    int8-dot route (packed, unfused q8_0 through ``fuse_qwen3_params_q8i``:
    K6 for layer 0's qkv and the head, K7 per layer), greedy and with the
    guardrail off. First the
-   card paths of those engines against the CPU f32 path on small inputs;
-   then stage timings, verify rounds and each kernel's launch count per
+   card paths of those engines against the CPU f32 path on small inputs,
+   and a q8_0 engine built with ``n_predict=2048`` (cache S = 2313): a
+   prefill and one verify round through ``spec_generate``, and its card
+   path against the CPU f32 path at that cache length; then stage timings, verify rounds and each kernel's launch count per
    path; the launches of one decode step and of one verify round per
    engine; and ms per decode step and per verify round, engine against
    engine in turns.
@@ -52,7 +58,6 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -60,6 +65,10 @@ import time
 
 import numpy as np
 import torch
+
+# median device ms of one call, CUDA events behind a sleep kernel so the
+# host's enqueue is not timed (shared with the probes)
+from fun_asr_gguf_tpu_torch.probes import time_ms
 
 # (name, m, n, k) — Qwen3-0.6B q8_0 projections, packed (qkv, gate_up),
 # at decode (m = 1) and at the 512-token prefill bucket, plus the lm_head;
@@ -102,31 +111,6 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 def log(msg):
     print(msg, flush=True)
-
-
-def time_ms(fn, iters=20, warmup=3):
-    """Median device milliseconds of one ``fn()`` (CUDA events). A sleep
-    kernel ahead of the start event keeps the card busy while the host
-    enqueues ``fn``, so the time is the card's, without the host's launch
-    cost (which would otherwise dominate a call of a few microseconds)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's clock: longer than any
-                           # plain version's host-side enqueue
 
 
 def bound(n_bytes, n_ops, kind="bf16"):
@@ -218,6 +202,7 @@ def phase_kernels(dev):
     rows["q8dot_matmul"] = phase_k6(dev, gen, w)
     rows["q8i_layer_fused"] = phase_k7(dev, gen, w)
     del w
+    rows.update(phase_probes(dev))
 
     # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
     bh, t, dd = 4, 1001, 128
@@ -429,11 +414,16 @@ def phase_k5(dev, gen, w):
     """K5 at full width (28 layers, GQA 16/8, head-major bf16 caches): S =
     768 (the 256-token bucket + 512 new tokens) with every cached slot but
     the last visible, and S = 1024 with valid_from = 56 (a left-padded
-    200-token prompt) and slot 1000. The bound counts the visible slots'
-    cache bytes: the kernel reads no masked row."""
+    200-token prompt) and slot 1000; then the same two caches with one
+    visible slot (the difference is the part of the attention that grows
+    with the visible slots). K5's stage timer splits each launch into its
+    stages (qkv, attention, o, gate_up, down, each with its grid barrier,
+    and the head), the median of 5 timed launches. The bound counts the
+    visible slots' cache bytes: the kernel reads no masked tile."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
-    row, worst = {}, 0.0
-    for s_len, vf, slot in ((768, 0, 767), (1024, 56, 1000)):
+    row, worst, times = {}, 0.0, {}
+    for s_len, vf, slot in ((768, 0, 767), (1024, 56, 1000), (768, 766, 767),
+                            (1024, 999, 1000)):
         args = mega_inputs(dev, gen, w, s_len, vf, slot)
         got = qm.q8_decode_all_fused(*args)
         ref = qm.q8_decode_all_fused_plain(*args)
@@ -449,6 +439,7 @@ def phase_k5(dev, gen, w):
         pms = time_ms(lambda: qm.q8_decode_all_fused_plain(*args), iters=5,
                       warmup=1)
         visible = slot - vf
+        times[(s_len, visible)] = ms
         ws = [w[k] for k in ("qkv", "o", "gu", "dn", "head")]
         n_bytes = (nbytes(*(a for q in ws for a in q), *args[:9])
                    + visible * LAYERS * 8 * 128 * 2 * 2
@@ -461,9 +452,20 @@ def phase_k5(dev, gen, w):
             f"{K5_TOL:g}, cosine > {K5_COS}) kernel {ms:.4f} ms plain "
             f"{pms:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
             f"{n_bytes / 1e6:.2f} MB)")
-        if s_len == 768:
+        if (s_len, visible) == (768, 767):
             row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
+        runs = [qm.q8_decode_all_stage_ms(*args)[0] for _ in range(5)]
+        stages = {k: float(np.median([r[k] for r in runs]))
+                  for k in runs[0]}
+        log(f"[3] K5 stages S={s_len} {visible} visible slots (ms over 28 "
+            f"layers, each to its grid barrier): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()))
         del args, got, ref
+    for s_len, visible in ((768, 767), (1024, 944)):
+        one = times[(s_len, 1)]
+        log(f"[3] K5 visible-slot part S={s_len}: {visible} visible slots "
+            f"{times[(s_len, visible)]:.4f} ms - 1 visible slot {one:.4f} ms "
+            f"= {times[(s_len, visible)] - one:.4f} ms")
     row["max_abs_err"] = worst
     return row
 
@@ -571,20 +573,26 @@ def phase_k7(dev, gen, w):
     return row
 
 
+# (T, S): the decode step (T = 1) at the 256-token bucket + 512 new
+# tokens and at 1024; the verify step (T = 9 rows for spec_k = 8) at the
+# same plus 9, and at 2313 (an engine built with n_predict = 2048)
+K2_SHAPES = ((1, 768), (1, 1024), (9, 777), (9, 1033), (9, 2313))
+
+
 def phase_k2(dev, gen):
     """K2 (bf16 cache) and K2-i8 (int8 cache, bf16 scales) over one layer
     of a stacked 28-layer cache (timed calls cycle the layers, so the
-    cache is cold in L2 as in a decode step): the decode step (T = 1; S =
-    256-token bucket + 512 new tokens, and 1024) and the verify step (T = 9
-    rows for spec_k = 8; row i sees slots <= base + i). The yardstick is
+    cache is cold in L2 as in a decode step) at ``K2_SHAPES`` (verify row
+    i sees slots <= base + i). The yardstick is
     ``scaled_dot_product_attention`` on the bf16 cache (GQA, the bias as a
-    float mask); no single PyTorch call takes an int8 cache with scales."""
+    float mask), printed beside K2 at every shape; no single PyTorch call
+    takes an int8 cache with scales."""
     from fun_asr_gguf_tpu_torch.models.qwen3 import _kv_quantize
     from fun_asr_gguf_tpu_torch.ops import flash_decode as fd
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, hd = 16, 8, 128
     rows, worst = {}, {"flash_decode": 0.0, "flash_decode_i8": 0.0}
-    for t, s_len in ((1, 768), (1, 1024), (9, 777), (9, 1033)):
+    for t, s_len in K2_SHAPES:
         q = (torch.randn(1, t, qh, hd, generator=gen, device=dev)
              * (hd ** -0.5)).to(torch.bfloat16)
         j = torch.arange(s_len, device=dev)
@@ -649,6 +657,35 @@ def phase_k2(dev, gen):
     return rows
 
 
+def phase_probes(dev):
+    """The probes P12 (the split-KV stage alone at chunk counts 1 ... 32)
+    and P5 (the stream rate of 28 layers of q8_0 bytes: summed, through
+    the m = 1 dequant GEMV, and with f16 scales), each against its plain
+    version; their rows for the kernels line (on no path: 0 launches)."""
+    from fun_asr_gguf_tpu_torch.probes import q8_bw_probe as p5
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as p12
+    rows = {}
+    res = p12.main(dev)
+    at = next(r for r in res["rows"] if r["chunk"] == p12.CS)
+    rows["p12_split_kv_stage"] = dict(
+        ms=at["ms"], plain_ms=res["plain_ms"], library_ms=None,
+        max_abs_err=max(r["max_abs_err"] for r in res["rows"]),
+        **bound(res["n_bytes"], 4 * p12.QH * (p12.SLOT + 1) * p12.D))
+    res = p5.main(dev)
+    for way, name, ops in (("a", "p5a_q8_stream_sum", 0),
+                           ("b", "p5b_q8_stream_gemv", 2),
+                           ("c", "p5c_q8_stream_gemv_f16", 2)):
+        r = res[way]
+        n_w = p5.LAYERS * sum(n * k for _, n, k in p5.SHAPES)
+        rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=None,
+                          max_abs_err=r["max_abs_err"],
+                          **bound(r["bytes"], ops * n_w))
+    log(f"[3] P5a achievable stream rate {res['a']['gbps']:.1f} GB/s "
+        f"({100 * res['a']['gbps'] * 1e9 / HBM_BYTES_PER_S:.1f} % of the "
+        f"3.35 TB/s data sheet peak)")
+    return rows
+
+
 # (name, CUDA source, the TPU kernel it replaces)
 KERNELS = [
     ("q8_matmul", "fun_asr_gguf_tpu_torch/csrc/q8_matmul.cu",
@@ -670,6 +707,17 @@ KERNELS = [
     ("q8i_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8i_layer_fused.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1586"),
 ]
+# the probes (on no path of the engine: 0 launches in phase 4)
+PROBES = [
+    ("p12_split_kv_stage", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:220"),
+    ("p5a_q8_stream_sum", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_bw_probe.py:92 (sum_kern :104)"),
+    ("p5b_q8_stream_gemv", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_bw_probe.py:92 (dq_kern :144)"),
+    ("p5c_q8_stream_gemv_f16", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_bw_probe.py:196"),
+]
 
 
 def main():
@@ -680,8 +728,8 @@ def main():
     launches = phase_e2e(dev)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **rows[name])
-        for name, src, rep in KERNELS]}))
+             launches=launches.get(name, 0), **rows[name])
+        for name, src, rep in KERNELS + PROBES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -839,6 +887,74 @@ def reference_check(engines, ckpt):
                            f"min cosine {worst:.6f}")
 
 
+# the q8_0 engine built with n_predict = 2048: its cache holds 256 + 2048 +
+# 9 slots, past the shared memory of the one-block-per-head K2 it replaced
+LONG_N_PREDICT = 2048
+
+
+def long_cache_check(ckpt, mods):
+    """A q8_0 engine built with ``n_predict=2048`` (cache S = 2313 at the
+    256-token bucket): a prefill of a 200-token prompt and one verify round
+    through ``spec_generate`` (28 K2 launches at S = 2313), then its card
+    path against the CPU f32 path on the same weights (prefill of 48 ids
+    and a 9-row verify step into a 2313-slot cache)."""
+    from fun_asr_gguf_tpu_torch import create_asr_engine
+    from fun_asr_gguf_tpu_torch.models import generate, qwen3
+    t0 = time.perf_counter()
+    eng = create_asr_engine(ckpt, verbose=False, llm_weight_format="q8_0",
+                            n_predict=LONG_N_PREDICT)
+    try:
+        m = eng.models
+        cfg = m.hybrid_cfg.llm
+        rng = np.random.default_rng(3)
+        prompt = (0.05 * rng.normal(size=(200, cfg.hidden))).astype(
+            np.float32)
+        state = m.spec_prepare(m.prefill(prompt, rng_seed=0))
+        s_len = state.kv.k.shape[2]
+        draft = torch.full((1, m.config.spec_draft_len), -1,
+                           dtype=torch.int64, device=m.device)
+        torch.cuda.synchronize()
+        _reset(mods)
+        tokens = m.spec_generate(state, draft, 0.0, 1.0, 50, chunk_len=64,
+                                 limit=1)
+        torch.cuda.synchronize()
+        counts = _counts(mods)
+        if (s_len != 256 + LONG_N_PREDICT + 9 or int(state.rounds[0]) != 1
+                or counts["flash_decode"] != LAYERS
+                or int((tokens[0] >= 0).sum()) < 1):
+            raise RuntimeError(f"n_predict={LONG_N_PREDICT} verify round: S "
+                               f"{s_len}, rounds {int(state.rounds[0])}, "
+                               f"launches {counts}")
+        ids = torch.from_numpy(rng.integers(0, 256, size=(1, 48)))
+        vids = torch.from_numpy(rng.integers(0, 256, size=(1, 9)))
+        outs = {}
+        for side, d, p_llm in (("ref", torch.device("cpu"),
+                                cpu_f32(m.llm_params)),
+                               ("card", m.device, m.llm_params)):
+            with torch.inference_mode():
+                st = generate.prefill_init(
+                    p_llm, qwen3.embed_tokens(p_llm, ids.to(d)),
+                    torch.ones(1, 48, device=d),
+                    torch.Generator(device=d).manual_seed(0), cfg,
+                    max_len=s_len)
+                outs[side] = (st.logits, qwen3.qwen3_verify_step(
+                    p_llm, st.kv, qwen3.embed_tokens(p_llm, vids.to(d)),
+                    torch.tensor([48], device=d),
+                    st.prompt_len[:, None] + torch.arange(9, device=d),
+                    st.valid_from, cfg)[0])
+        cos = [_cos(a, b) for a, b in zip(outs["ref"], outs["card"])]
+        log(f"[4] n_predict={LONG_N_PREDICT} q8_0 engine: cache S={s_len}; "
+            f"one verify round (9 rows) launched {counts['flash_decode']} "
+            f"K2; card vs CPU f32 at S={s_len}: prefill {cos[0]:.6f}, verify "
+            f"{cos[1]:.6f} (tol > {REF_COS}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not min(cos) > REF_COS:
+            raise RuntimeError(f"the S={s_len} verify step disagrees with the "
+                               f"CPU reference: cosine {cos}")
+    finally:
+        eng.cleanup()
+
+
 def _counts(mods):
     return {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
 
@@ -939,6 +1055,7 @@ def phase_e2e(dev):
                     f" fuse_projections={c.fuse_projections} markers "
                     f"{[k for k in MARKERS if k in m.llm_params]}")
             reference_check(engines, ckpt)
+            long_cache_check(ckpt, mods)
             for name, _, runs, _, env in ENGINES:
                 with env_vars(env):
                     path = transcribe_runs(engines[name], name, wav, runs,
@@ -1079,12 +1196,14 @@ def decode_step_ms(engines, steps=64):
                            chunk_len=steps, stop_tokens=m.stop_tokens,
                            limit=4)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, step0 = time.perf_counter(), state.step
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
                            chunk_len=steps, stop_tokens=m.stop_tokens)
             torch.cuda.synchronize()
+        # the chunk stops early once its row is done (a stop id or the
+        # repetition fuse): divide by the steps it ran
         res.setdefault(name, []).append(
-            (time.perf_counter() - t0) * 1e3 / steps)
+            (time.perf_counter() - t0) * 1e3 / max(state.step - step0, 1))
     verify = {}
     for name, eng in engines.items():
         m = eng.models

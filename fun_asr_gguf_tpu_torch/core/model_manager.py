@@ -13,7 +13,8 @@ Counterpart of ``fun_asr_gguf_tpu/core/model_manager.py``. The init stages:
 2. tokenizer (stop ids);
 3. CTC vocab + prompt builder over the host f32 embedding table;
 4. warm-up: one encode, one CTC pass, one prefill + generate chunk per
-   sampling mode, and with ``speculative`` one speculative chunk and the
+   sampling mode (in the smallest bucket, or every bucket with
+   ``warmup_all_buckets``), and with ``speculative`` one speculative chunk and the
    plain chunk that follows ``spec_to_gen``, on the configured cache
    (``kv_cache_dtype``; builds the CUDA kernels on first use);
 5. hotword manager (+ the opt-in rule corrector and correction RAG).
@@ -295,23 +296,26 @@ class ModelManager:
         _embd, enc = self.encode_audio(np.zeros(sr, dtype=np.float32))
         if self.config.enable_ctc:
             self.ctc_indices(enc)
-        bucket = min(self.config.prefill_buckets)
-        fake = np.zeros((bucket, self.hybrid_cfg.llm.hidden), np.float32)
+        buckets = sorted(self.config.prefill_buckets)
+        if not self.config.warmup_all_buckets:
+            buckets = buckets[:1]       # the others warm on first use
         chunk = self._default_chunk_len()
-        for temp in (0.0, 0.4):
-            state = self.prefill(fake, rng_seed=0)
-            if self.config.speculative and self.config.enable_ctc:
-                # the speculative chunk, and the plain chunk that continues
-                # a state the guardrail converted
-                draft = torch.full((1, self.config.spec_draft_len), -1,
-                                   dtype=torch.int64, device=self.device)
-                sstate = self.spec_prepare(state)
-                self.spec_generate(sstate, draft, temperature=temp,
-                                   top_p=1.0, top_k=50, chunk_len=chunk,
-                                   limit=1)
-                state = spec_to_gen(sstate)
-            self.generate(state, temperature=temp, top_p=1.0, top_k=50,
-                          chunk_len=chunk, limit=2)
+        for bucket in buckets:
+            fake = np.zeros((bucket, self.hybrid_cfg.llm.hidden), np.float32)
+            for temp in (0.0, 0.4):
+                state = self.prefill(fake, rng_seed=0)
+                if self.config.speculative and self.config.enable_ctc:
+                    # the speculative chunk, and the plain chunk that
+                    # continues a state the guardrail converted
+                    draft = torch.full((1, self.config.spec_draft_len), -1,
+                                       dtype=torch.int64, device=self.device)
+                    sstate = self.spec_prepare(state)
+                    self.spec_generate(sstate, draft, temperature=temp,
+                                       top_p=1.0, top_k=50, chunk_len=chunk,
+                                       limit=1)
+                    state = spec_to_gen(sstate)
+                self.generate(state, temperature=temp, top_p=1.0, top_k=50,
+                              chunk_len=chunk, limit=2)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -13,8 +13,9 @@
 //   q, k = rope(rmsnorm(q) * q_norm[l]), rope(rmsnorm(k) * k_norm[l])  (f32)
 //   attention per kv head, query heads 2hh and 2hh+1:
 //     the current token in f32: s = q.k_cur * scale, weight exp(s - M),
-//     value v_cur; the cached slots: bf16(q).k * scale + bias, p = exp(.-M)
-//     summed in f32 and rounded to bf16 for p.v; xm = bf16(acc / l)
+//     value v_cur; the cached slots: bf16(q).k * scale + bias, per chunk
+//     p = exp(. - m_chunk) summed in f32 and rounded to bf16 for p.v; the
+//     chunks merged with weights exp(m_chunk - M); xm = bf16(acc / l)
 //   h1   = xm . o[l]^T + res                                (f32)
 //   act  = bf16(silu(nh1 . gate^T) * (nh1 . up^T)), nh1 = bf16(rmsnorm(h1)
 //          * post_ln[l])
@@ -40,16 +41,27 @@
 // thing that holds the step above its byte floor. The GEMVs are K4's (one
 // warp per output row, 16-byte int8 loads, q8_gemv.cuh); after a barrier
 // each block recomputes the 1024-wide RMSNorm of the f32 row into its own
-// shared memory instead of paying another barrier. Attention takes one
-// block per kv head (the other blocks wait at the next barrier): the two
-// roped query rows sit in shared memory; each thread scores its own cache
-// slots (a whole K row against both rows), the scores of the row live in
-// shared memory (8 bytes per slot), then an exact softmax over the row
-// with the current token's f32 term, then warps take slots in turn with
-// lanes owning 4 head_dim columns for p.v. A slot whose bias is -1e29 or
-// below (the callers' -1e30 mask) contributes exp(-1e30 - M) = 0 to both
-// sums, so it is skipped without reading its K or V row: the cache bytes a
-// step reads are those of its visible slots.
+// shared memory instead of paying another barrier. Attention is split-KV
+// over every block (split_kv.cuh, the stage K2 runs): the work items are
+// (kv head, chunk of cache slots), sized so that the heads' chunks about
+// fill the grid; each block recomputes the two roped query rows of its
+// head, stages its chunk's K and V tiles with cp.async, scores and mixes
+// them with mma.sync (probabilities rounded to bf16 unnormalised, as JAX's
+// chunked stage does, quant_matmul.py :1870-1880) and writes the chunk's
+// (m, l, acc); the last block of a head (an atomic ticket, no extra grid
+// barrier) merges the chunks in order, started from the current token's
+// f32 term (m = s_cur, l = 1, acc = v_cur), into xm. A tile whose bias is
+// -1e29 or below for every slot (the callers' -1e30 mask) is skipped
+// without reading its K or V rows: the cache bytes a step reads are those
+// of its visible tiles. The shared memory does not grow with S.
+//
+// The stage timer (a non-null `stamps`, a measurement, never on the decode
+// path): thread 0 of block 0 writes its SM's clock64 at the start, after
+// each of the 140 grid barriers and after its share of the head, and the
+// global nanosecond timer at the start and the end, which converts cycles
+// to time. Each interval between two barriers is one stage's wall time as
+// block 0 sees it: the slowest block's work of that stage plus the
+// barrier. Off, it costs one predicated branch per barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -62,6 +74,7 @@
 #include <utility>
 
 #include "q8_gemv.cuh"
+#include "split_kv.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -71,9 +84,7 @@ using namespace q8;
 
 constexpr int kHd = 128;               // head_dim: 32 lanes x 4 columns
 constexpr int kMaxBlocksPerSm = 2;     // fewer blocks, cheaper grid barriers
-constexpr float kMasked = -1e29f;      // bias at or below: a masked slot
-static_assert(kThreads == 2 * kHd, "the p.v epilogue maps a thread to one "
-                                   "(query row, column) pair");
+static_assert(kWarps >= 4, "warps 0..3 form the current token's rows");
 
 struct Args {
   const float* x0;               // [h]          embedding row, f32
@@ -105,178 +116,149 @@ struct Args {
   float* logits;                 // [vp]
   float* k_new;                  // [L, kh, D]
   float* v_new;                  // [L, kh, D]
+  float* att;                    // chunk partials: acc [kh][nch][2][D],
+                                 // m, l [kh][nch][2]
+  int* tickets;                  // [kh], 0 between calls
   int L, h, qd, f, kh, S, vp;
   float eps, scale;
+  int chunk, nch;                // cache slots per attention item, items
+                                 // per kv head
+  long long* stamps;             // the stage timer [5 L + 4], or null
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+// stamps[i] = clock64() on block 0's thread 0, when the timer is on
+__device__ __forceinline__ void stamp(const Args& a, int i) {
+  if (a.stamps && blockIdx.x == 0 && threadIdx.x == 0) a.stamps[i] = clock64();
 }
 
-// Block-wide max / sum of one value per thread (kThreads threads); red
-// holds kWarps floats of shared memory.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();                      // red may still be read
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
 }
 
-// Attention of query heads 2hh, 2hh+1 of layer l over kv head hh; writes
-// xm[(2hh+g)*D + d], k_new / v_new[l, hh]. sm: the block's attention
-// shared memory (see attn_floats).
-__device__ void attend_head(const Args& a, int l, int hh, float* sm) {
+using AttSmem = skv::Smem<__nv_bfloat16, 1>;   // the chunk stage's layout
+
+// Floats of shared memory after the stage's: the roped q rows in f32
+// [2][D], the current token's k and v [D] each, s_cur [2] (+ 2 pad).
+constexpr int kAuxFloats = 4 * kHd + 4;
+
+// Roped q (warp < 2, row g = warp) or k (warp == 2) of kv head hh in layer
+// l, f32: qk-norm then rope; lane owns columns 4*lane..4*lane+3, and the
+// rope partner (column d +- 64) sits in lane ^ 16.
+__device__ __forceinline__ void rope_row(const Args& a, int l, int hh,
+                                         int warp, float (&y)[4]) {
   constexpr int D = kHd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int S = a.S;
-  float* qf = sm;                  // [2][D] roped q, f32
-  float* qb = qf + 2 * D;          // [2][D] the same rounded to bf16
-  float* vcur = qb + 2 * D;        // [D]
-  float* red = vcur + D;           // [kWarps][2][D] p.v partials
-  float* st = red + kWarps * 2 * D;  // [16]: s_cur[2], reductions
-  float* sc = st + 16;             // [2][S] scores, then probabilities
-  const size_t row = static_cast<size_t>(l) * a.kh + hh;
-  const int nq_k = a.qd + hh * D, nq_v = a.qd + (a.kh + hh) * D;
-
-  // phase 0: qk-norm + rope of q rows (warps 0, 1) and k (warp 2), the v
-  // row (warp 3); each lane owns columns 4*lane..4*lane+3, and the rope
-  // partner (column d +- 64) sits in lane ^ 16
-  float kcur[4];
-  if (warp < 3) {
-    const int off = warp < 2 ? (2 * hh + warp) * D : nq_k;
-    const __nv_bfloat16* nw = (warp < 2 ? a.qn : a.kn) + l * D;
-    const float4 v4 = __ldcg(reinterpret_cast<const float4*>(
-        a.qkv + off + 4 * lane));
-    float x[4] = {v4.x, v4.y, v4.z, v4.w};
-    const float ss = warp_sum(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]
-                              + x[3] * x[3]);
-    const float inv = 1.f / sqrtf(ss / static_cast<float>(D) + a.eps);
+  const int lane = threadIdx.x & 31;
+  const int off = warp < 2 ? (2 * hh + warp) * D : a.qd + hh * D;
+  const __nv_bfloat16* nw = (warp < 2 ? a.qn : a.kn) + l * D;
+  const float4 v4 = __ldcg(reinterpret_cast<const float4*>(
+      a.qkv + off + 4 * lane));
+  float x[4] = {v4.x, v4.y, v4.z, v4.w};
+  const float ss = warp_sum(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]
+                            + x[3] * x[3]);
+  const float inv = 1.f / sqrtf(ss / static_cast<float>(D) + a.eps);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = (x[i] * inv) * __bfloat162float(nw[4 * lane + i]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = __shfl_xor_sync(0xffffffffu, x[i], 16);
-      const int d = 4 * lane + i;
-      const float y = x[i] * __ldg(a.cos + d)
-                      + (lane < 16 ? -p : p) * __ldg(a.sin + d);
-      if (warp < 2) {
-        qf[warp * D + d] = y;
-        qb[warp * D + d] = bf16_round(y);
-      } else {
-        kcur[i] = y;
-        a.k_new[row * D + d] = y;
-      }
-    }
-  } else if (warp == 3) {
-    const float4 v4 = __ldcg(reinterpret_cast<const float4*>(
-        a.qkv + nq_v + 4 * lane));
-    const float x[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      vcur[4 * lane + i] = x[i];
-      a.v_new[row * D + 4 * lane + i] = x[i];
-    }
-  }
-  __syncthreads();
-  if (warp == 2) {   // the current token's scores, in f32
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s += qf[g * D + 4 * lane + i] * kcur[i];
-      s = warp_sum(s);
-      if (lane == 0) st[g] = s * a.scale;
-    }
-  }
-
-  // phase 1: each thread scores its own slots against both rows
-  const __nv_bfloat16* kbase = a.kc + row * S * D;
-  const __nv_bfloat16* vbase = a.vc + row * S * D;
-  float m0 = -INFINITY, m1 = -INFINITY;
-  for (int s = tid; s < S; s += kThreads) {
-    const float b = __ldg(a.bias + s);
-    float s0 = -INFINITY, s1 = -INFINITY;
-    if (b > kMasked) {
-      const __nv_bfloat16* kr = kbase + static_cast<size_t>(s) * D;
-      float d0 = 0.f, d1 = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D; c += 8) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kr + c));
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float kv = __bfloat162float(e[i]);
-          d0 = fmaf(qb[c + i], kv, d0);
-          d1 = fmaf(qb[D + c + i], kv, d1);
-        }
-      }
-      s0 = d0 * a.scale + b;
-      s1 = d1 * a.scale + b;
-    }
-    sc[s] = s0;
-    sc[S + s] = s1;
-    m0 = fmaxf(m0, s0);
-    m1 = fmaxf(m1, s1);
-  }
-  __syncthreads();   // st[0..1] from warp 2
-
-  // phase 2: exact softmax over the row, the current token included
-  const float c0 = st[0], c1 = st[1];
-  const float mx0 = fmaxf(c0, block_reduce<true>(m0, st + 4));
-  const float mx1 = fmaxf(c1, block_reduce<true>(m1, st + 4));
-  float l0 = 0.f, l1 = 0.f;
-  for (int s = tid; s < S; s += kThreads) {
-    const float p0 = expf(sc[s] - mx0), p1 = expf(sc[S + s] - mx1);
-    sc[s] = p0;
-    sc[S + s] = p1;
-    l0 += p0;
-    l1 += p1;
-  }
-  const float pc0 = expf(c0 - mx0), pc1 = expf(c1 - mx1);
-  l0 = block_reduce<false>(l0, st + 4) + pc0;
-  l1 = block_reduce<false>(l1, st + 4) + pc1;
-  __syncthreads();   // every probability written
-
-  // phase 3: p.v, warps take slots in turn, lanes own 4 columns
-  float acc0[4] = {}, acc1[4] = {};
-  for (int s = warp; s < S; s += kWarps) {
-    const float p0 = sc[s], p1 = sc[S + s];
-    if (p0 == 0.f && p1 == 0.f) continue;   // masked: adds nothing
-    const float b0 = bf16_round(p0), b1 = bf16_round(p1);
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        vbase + static_cast<size_t>(s) * D + 4 * lane));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float vv = __bfloat162float(e[i]);
-      acc0[i] = fmaf(b0, vv, acc0[i]);
-      acc1[i] = fmaf(b1, vv, acc1[i]);
-    }
-  }
+  for (int i = 0; i < 4; ++i)
+    x[i] = (x[i] * inv) * __bfloat162float(nw[4 * lane + i]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    red[(warp * 2) * D + 4 * lane + i] = acc0[i];
-    red[(warp * 2 + 1) * D + 4 * lane + i] = acc1[i];
+    const float p = __shfl_xor_sync(0xffffffffu, x[i], 16);
+    const int d = 4 * lane + i;
+    y[i] = x[i] * __ldg(a.cos + d) + (lane < 16 ? -p : p) * __ldg(a.sin + d);
   }
-  __syncthreads();
-  {
-    const int g = tid / D, d = tid % D;
-    float o = vcur[d] * (g ? pc1 : pc0);
-    for (int w = 0; w < kWarps; ++w) o += red[(w * 2 + g) * D + d];
-    a.xm[(2 * hh + g) * D + d] = __float2bfloat16(o / (g ? l1 : l0));
-  }
-  __syncthreads();   // shared memory is reused by the next head
 }
 
-// floats of attention shared memory for S cache slots (attend_head)
-__host__ __device__ inline size_t attn_floats(int S) {
-  return 5 * kHd + kWarps * 2 * kHd + 16 + 2 * static_cast<size_t>(S);
+struct OutXm {                    // xm[(2 hh + g) D + d] for query row g
+  __nv_bfloat16* xm;
+  int hh;
+  __device__ void operator()(int g, int d, float v) const {
+    xm[(2 * hh + g) * kHd + d] = __float2bfloat16(v);
+  }
+};
+
+// One attention work item of layer l: kv head hh (query heads 2hh, 2hh+1)
+// over cache slots [c chunk, (c + 1) chunk), through the shared chunk
+// stage; the last item of the head merges the chunks, started from the
+// current token's f32 term, into xm and writes k_new / v_new[l, hh].
+__device__ void attend_item(const Args& a, int l, int hh, int c,
+                            unsigned char* sm) {
+  constexpr int D = kHd;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* aux = reinterpret_cast<float*>(sm + AttSmem::bytes);
+  float* qf = aux;                 // [2][D]
+  float* kcur = qf + 2 * D;        // [D]
+  float* vcur = kcur + D;          // [D]
+  float* scur = vcur + D;          // [2]
+  const size_t row = static_cast<size_t>(l) * a.kh + hh;
+
+  // the two roped query rows: f32 (the current token's score) and bf16
+  // (the cached slots' scores); stage rows 2..15 are padding
+  if (warp < 2) {
+    float y[4];
+    rope_row(a, l, hh, warp, y);
+    __nv_bfloat16* qb = skv::q_rows(sm) + warp * AttSmem::kQStride;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qf[warp * D + 4 * lane + i] = y[i];
+      qb[4 * lane + i] = __float2bfloat16(y[i]);
+    }
+  }
+
+  skv::StageIn in;
+  in.k = a.kc + row * a.S * D;
+  in.v = a.vc + row * a.S * D;
+  in.stride = D;
+  in.ks = in.vs = nullptr;
+  in.sstride = 0;
+  in.bias = a.bias;
+  in.tstride = 0;
+  in.group = 2;
+  in.R = 2;
+  in.scale = a.scale;
+  const int nch = a.nch;
+  // att: acc [kh][nch][2][D], then m [kh][nch][2], then l
+  float* pacc = a.att + hh * nch * 2 * D;
+  float* pm = a.att + a.kh * nch * 2 * D + hh * nch * 2;
+  float* pl = pm + a.kh * nch * 2;
+  const int s0 = c * a.chunk, s1 = min(a.S, s0 + a.chunk);
+  skv::stage<__nv_bfloat16, 1, kWarps>(in, s0, s1, sm, pm + c * 2,
+                                       pl + c * 2, pacc + c * 2 * D);
+  if (skv::last_block(a.tickets + hh, nch,
+                      reinterpret_cast<int*>(sm + AttSmem::flag))) {
+    // the current token: its roped k (warp 2) and v (warp 3), in f32
+    if (warp == 2) {
+      float y[4];
+      rope_row(a, l, hh, 2, y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kcur[4 * lane + i] = y[i];
+        a.k_new[row * D + 4 * lane + i] = y[i];
+      }
+    } else if (warp == 3) {
+      const float4 v4 = __ldcg(reinterpret_cast<const float4*>(
+          a.qkv + a.qd + (a.kh + hh) * D + 4 * lane));
+      const float x[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        vcur[4 * lane + i] = x[i];
+        a.v_new[row * D + 4 * lane + i] = x[i];
+      }
+    }
+    __syncthreads();
+    if (warp < 2) {   // s_cur of query row g = warp, in f32
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s += qf[warp * D + 4 * lane + i] * kcur[4 * lane + i];
+      s = warp_sum(s);
+      if (lane == 0) scur[warp] = s * a.scale;
+    }
+    __syncthreads();
+    skv::combine(pm, pl, pacc, nch, 2, scur, vcur,
+                 skv::combine_scratch<__nv_bfloat16, 1>(sm), OutXm{a.xm, hh});
+  }
+  __syncthreads();   // shared memory is reused by the next item
 }
 
 __host__ __device__ inline size_t nh_bytes(int h) {
@@ -287,13 +269,18 @@ __global__ void __launch_bounds__(kThreads)
 q8_decode_all_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* nh = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [h]
-  float* att = reinterpret_cast<float*>(smem_raw + nh_bytes(a.h));
+  unsigned char* att = smem_raw + nh_bytes(a.h);
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
   const int gwarp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nwarps = gridDim.x * kWarps;
   const int h = a.h, qd = a.qd, f = a.f;
   const int nq = qd + 2 * a.kh * kHd;
+  // the timer: [0] global ns, [1] clock at the start; [2 + 5 l + j] after
+  // barrier j of layer l; [2 + 5 L] after the head; [3 + 5 L] global ns
+  if (a.stamps && blockIdx.x == 0 && threadIdx.x == 0)
+    a.stamps[0] = global_ns();
+  stamp(a, 1);
 
   for (int c = threadIdx.x * 8; c < h; c += kThreads * 8)
     *reinterpret_cast<uint4*>(nh + c) =
@@ -307,27 +294,34 @@ q8_decode_all_kernel(Args a) {
                                nh, 1, h, nq, nullptr, a.qkv, nq, gwarp,
                                nwarps, lane);
     grid.sync();
+    stamp(a, 2 + 5 * l);
 
-    for (int hh = blockIdx.x; hh < a.kh; hh += gridDim.x)
-      attend_head(a, l, hh, att);
+    // attention items (kv head, chunk of slots) over every block; the
+    // last item of each head merges them (no extra grid barrier)
+    for (int it = blockIdx.x; it < a.kh * a.nch; it += gridDim.x)
+      attend_item(a, l, it % a.kh, it / a.kh, att);
     grid.sync();
+    stamp(a, 3 + 5 * l);
 
     // h1 = xm . o[l]^T + res (the embedding row before layer 0)
     gemv_rows<1, Src::kL2>(a.oq + li * h * qd, a.od + li * h * (qd >> 5), a.xm,
                            1, qd, h, l == 0 ? a.x0 : a.res, a.h1, h, gwarp,
                            nwarps, lane);
     grid.sync();
+    stamp(a, 4 + 5 * l);
 
     rms_rows_to_smem(a.h1, a.post + li * h, 1, h, a.eps, nh);
     __syncthreads();
     gate_up_rows<1>(a.gq + li * 2 * f * h, a.gd + li * 2 * f * (h >> 5), nh, 1,
                     h, f, a.act, gwarp, nwarps, lane);
     grid.sync();
+    stamp(a, 5 + 5 * l);
 
     // res = act . down[l]^T + h1
     gemv_rows<1, Src::kL2>(a.dq + li * h * f, a.dd + li * h * (f >> 5), a.act,
                            1, f, h, a.h1, a.res, h, gwarp, nwarps, lane);
     grid.sync();
+    stamp(a, 6 + 5 * l);
 
     // the next layer's input norm; after the last layer, the final norm
     rms_rows_to_smem(a.res, a.nnext + li * h, 1, h, a.eps, nh);
@@ -336,6 +330,9 @@ q8_decode_all_kernel(Args a) {
 
   gemv_rows<1, Src::kShared>(a.hq, a.hd, nh, 1, h, a.vp, nullptr, a.logits,
                              a.vp, gwarp, nwarps, lane);
+  stamp(a, 2 + 5 * a.L);
+  if (a.stamps && blockIdx.x == 0 && threadIdx.x == 0)
+    a.stamps[3 + 5 * a.L] = global_ns();
 }
 
 // Co-resident grid size for `smem` bytes of dynamic shared memory on
@@ -379,9 +376,12 @@ cudaError_t grid_blocks(int dev, size_t smem, int* blocks) {
 // 128]; qkv: int8 [L, nq, h] + f32 [L, nq, h/32] with nq = qd + 2 kh 128;
 // o: [L, h, qd]; gate_up: [L, 2f, h]; down: [L, h, f]; head: [vp, h];
 // scratch qkv f32 [nq], xm bf16 [qd], res, h1 f32 [h], act bf16 [f];
-// logits f32 [vp]; k_new, v_new f32 [L, kh, 128]. qd = 2 kh 128 (GQA
-// group 2), h, qd, f % 32 == 0, 16-byte aligned pointers (checked by the
-// wrapper). Returns the launch's cudaError_t: a grid the card cannot make
+// logits f32 [vp]; k_new, v_new f32 [L, kh, 128]; att f32 [kh ceil(S /
+// 32) 2 130] (the attention items' partials); tickets int32 [kh], zero
+// (the kernel leaves them zero); stamps int64 [5 L + 4] (the stage timer)
+// or null. qd = 2 kh 128 (GQA group 2), h, qd, f % 32 == 0, 16-byte
+// aligned pointers (checked by the wrapper). Returns the launch's
+// cudaError_t: a grid the card cannot make
 // co-resident, or shared memory it cannot give, is refused, never run
 // partially.
 extern "C" int q8_decode_all(
@@ -391,8 +391,9 @@ extern "C" int q8_decode_all(
     const void* qkvd, const void* oq, const void* od, const void* gq,
     const void* gd, const void* dq, const void* dd, const void* hq,
     const void* hd, void* qkv, void* xm, void* res, void* h1, void* act,
-    void* logits, void* k_new, void* v_new, int L, int h, int qd, int f,
-    int kh, int S, int vp, float eps, float scale, void* stream) {
+    void* logits, void* k_new, void* v_new, void* att, void* tickets,
+    void* stamps, int L, int h, int qd, int f, int kh, int S, int vp,
+    float eps, float scale, void* stream) {
   if (L < 1 || S < 1 || kh < 1 || vp < 1 || h % 32 || qd % 32 || f % 32
       || qd != 2 * kh * kHd)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -415,12 +416,19 @@ extern "C" int q8_decode_all(
          static_cast<float*>(res), static_cast<float*>(h1),
          static_cast<__nv_bfloat16*>(act), static_cast<float*>(logits),
          static_cast<float*>(k_new), static_cast<float*>(v_new),
-         L, h, qd, f, kh, S, vp, eps, scale};
-  const size_t smem = nh_bytes(h) + attn_floats(S) * sizeof(float);
+         static_cast<float*>(att), static_cast<int*>(tickets),
+         L, h, qd, f, kh, S, vp, eps, scale, 0, 0,
+         static_cast<long long*>(stamps)};
+  // the attention stage's shared memory does not grow with S
+  const size_t smem =
+      nh_bytes(h) + AttSmem::bytes + kAuxFloats * sizeof(float);
   int dev = 0, blocks = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = grid_blocks(dev, smem, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
+  // one attention item per block: kv heads x chunks ~ the grid
+  a.chunk = skv::chunk_slots(S, kh, blocks);
+  a.nch = (S + a.chunk - 1) / a.chunk;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(q8_decode_all_kernel), dim3(blocks),

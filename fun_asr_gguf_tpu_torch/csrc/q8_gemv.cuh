@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,6 +40,14 @@ __device__ __forceinline__ float deq(int8_t q, float s) {
   return __bfloat162float(__float2bfloat16(static_cast<float>(q) * s));
 }
 
+// a q8_0 block scale: f32 (the port's layout) or f16 (the GGUF's)
+__device__ __forceinline__ float scale_at(const float* d, int i) {
+  return __ldg(d + i);
+}
+__device__ __forceinline__ float scale_at(const __half* d, int i) {
+  return __half2float(__ldg(d + i));
+}
+
 template <Src S>
 __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
   const uint4* v = reinterpret_cast<const uint4*>(p);
@@ -49,9 +58,10 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
 
 // acc[j][r] += x[r, :k] . bf16(q_j * d_j) for NR weight rows q_j, all m
 // activation rows; x rows are `k` apart. Lane partial sums (not reduced).
-template <int MT, int NR, Src S>
+// ST: the type of the block scales (float or __half).
+template <int MT, int NR, Src S, typename ST>
 __device__ __forceinline__ void rows_dot(const int8_t* const (&q)[NR],
-                                         const float* const (&d)[NR],
+                                         const ST* const (&d)[NR],
                                          const __nv_bfloat16* x, int m, int k,
                                          int lane, float (&acc)[NR][MT]) {
 #pragma unroll 2
@@ -60,7 +70,7 @@ __device__ __forceinline__ void rows_dot(const int8_t* const (&q)[NR],
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
       const int4 qv = __ldg(reinterpret_cast<const int4*>(q[j] + kk));
-      const float s = __ldg(d[j] + (kk >> 5));
+      const float s = scale_at(d[j], kk >> 5);
       const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
 #pragma unroll
       for (int i = 0; i < 16; ++i) w[j][i] = deq(qb[i], s);
@@ -114,15 +124,15 @@ __device__ __forceinline__ void rms_rows_to_smem(const float* x,
 
 // One output row per warp of the grid: y[r*ld + j] = x[r] . bf16(w_j) (+
 // add[r*ld + j] when add is not null, read via L2) for j < n, all m rows.
-template <int MT, Src S>
-__device__ __forceinline__ void gemv_rows(const int8_t* wq, const float* wd,
+template <int MT, Src S, typename ST>
+__device__ __forceinline__ void gemv_rows(const int8_t* wq, const ST* wd,
                                           const __nv_bfloat16* x, int m,
                                           int k, int n, const float* add,
                                           float* y, int ld, int gwarp,
                                           int nwarps, int lane) {
   for (int j = gwarp; j < n; j += nwarps) {
     const int8_t* const q[1] = {wq + static_cast<size_t>(j) * k};
-    const float* const d[1] = {wd + static_cast<size_t>(j) * (k >> 5)};
+    const ST* const d[1] = {wd + static_cast<size_t>(j) * (k >> 5)};
     float acc[1][MT] = {};
     rows_dot<MT, 1, S>(q, d, x, m, k, lane, acc);
 #pragma unroll

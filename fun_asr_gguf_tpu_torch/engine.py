@@ -50,6 +50,11 @@ class FunASREngine:
                  llm_weight_format: str = "auto",
                  fuse_projections: bool = True,
                  ctc_beam_size: int = 1,
+                 ctc_beam_topk: int = 8,
+                 hotword_beam_bonus: float = 2.0,
+                 compilation_cache_dir: Optional[str] = None,
+                 int8_lm_head: bool = True,
+                 warmup_all_buckets: bool = False,
                  warmup: bool = True,
                  speculative: bool = True,
                  spec_k: int = 8,
@@ -57,8 +62,15 @@ class FunASREngine:
                  spec_min_accept: float = 1.35,
                  mesh_shape: Optional[dict] = None,
                  kv_cache_dtype: str = "bf16",
-                 int8_lm_head: bool = True,
                  device: Optional[str] = None):
+        """JAX's parameters, in JAX's order and with its defaults, then
+        ``device``. ``compilation_cache_dir`` is accepted for the same call
+        surface: PyTorch runs eagerly and the kernels are built once per
+        source hash (``kernels/build.py``), so there is no XLA cache for it
+        to feed. ``warmup_all_buckets`` warms every prefill bucket at init
+        (the smallest only by default). ``ctc_beam_topk`` and
+        ``hotword_beam_bonus`` are kept in the config for the beam search,
+        which raises until it is ported (``ctc_beam_size > 1``)."""
         if llm_weight_format not in ("auto", "bf16", "int8", "int4",
                                      "q8_0"):
             raise ValueError(
@@ -96,9 +108,14 @@ class FunASREngine:
             prefill_buckets=tuple(prefill_buckets),
             llm_weight_format=llm_weight_format,
             fuse_projections=fuse_projections, ctc_beam_size=ctc_beam_size,
-            warmup=warmup, speculative=speculative, spec_k=spec_k,
+            ctc_beam_topk=ctc_beam_topk,
+            hotword_beam_bonus=hotword_beam_bonus,
+            compilation_cache_dir=compilation_cache_dir,
+            int8_lm_head=int8_lm_head,
+            warmup_all_buckets=warmup_all_buckets, warmup=warmup,
+            speculative=speculative, spec_k=spec_k,
             spec_draft_len=spec_draft_len, spec_min_accept=spec_min_accept,
-            kv_cache_dtype=kv_cache_dtype, int8_lm_head=int8_lm_head)
+            kv_cache_dtype=kv_cache_dtype)
         self.device = dev
         self.models = ModelManager(self.config, dev)
         self.orchestrator = TranscriptionOrchestrator(self.models)
@@ -157,10 +174,22 @@ class FunASREngine:
         self.models.cleanup()
 
 
-def create_asr_engine(checkpoint_dir: str, verbose: bool = True,
+def create_asr_engine(checkpoint_dir: str,
+                      tokens_path: Optional[str] = None,
+                      tokenizer_path: Optional[str] = None,
+                      hotwords_path: Optional[str] = None,
+                      enable_ctc: bool = True,
+                      similar_threshold: float = 0.6,
+                      max_hotwords: int = 10,
+                      verbose: bool = True,
                       **kwargs) -> FunASREngine:
-    """Create and initialize the engine (raises on failure)."""
-    engine = FunASREngine(checkpoint_dir=checkpoint_dir, **kwargs)
+    """Create and initialize the engine (raises on failure); JAX's
+    positional parameters, the rest (``device`` included) by keyword."""
+    engine = FunASREngine(
+        checkpoint_dir=checkpoint_dir, tokens_path=tokens_path,
+        tokenizer_path=tokenizer_path, hotwords_path=hotwords_path,
+        enable_ctc=enable_ctc, similar_threshold=similar_threshold,
+        max_hotwords=max_hotwords, **kwargs)
     if not engine.initialize(verbose=verbose):
         raise RuntimeError("Failed to initialize ASR engine")
     return engine

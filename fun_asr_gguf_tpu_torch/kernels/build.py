@@ -40,11 +40,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
-    "q8_decode_all": [_P] * 29 + [_I] * 7 + [_F, _F, _P],
+    "q8_decode_all": [_P] * 32 + [_I] * 7 + [_F, _F, _P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8i_layer_fused": [_P] * 17 + [_I] * 5 + [_F, _P],
-    "flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "flash_decode_i8": [_P] * 7 + [_I] * 6 + [_P],
+    "flash_decode_bf16": [_P] * 7 + [_I] * 7 + [_P],
+    "flash_decode_i8": [_P] * 9 + [_I] * 7 + [_P],
+    "split_kv_probe": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "q8_stream_sum": [_P] * 10 + [_I] * 5 + [_P],
+    "q8_stream_gemv": [_P] * 10 + [_I] * 10 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -146,3 +149,31 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+_sms = {}
+_tickets = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count (cached per device)."""
+    import torch
+    idx = torch.device(device).index or 0
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def tickets(device, n: int):
+    """A zeroed int32 buffer of at least ``n`` tickets for the split-KV
+    kernels, one per (device, stream): a kernel's last block resets the
+    tickets it used, so the buffer is zero again between calls on a
+    stream, and calls on one stream never overlap."""
+    import torch
+    dev = torch.device(device)
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _tickets[key] = buf
+    return buf

@@ -3,12 +3,12 @@
 ``prefill_init`` :58 runs the embedding-injection prefill and builds the
 generation state; ``generate_chunk`` :104 runs up to ``chunk_len`` steps
 — sampling, stop detection, the repetition fuse, the feed-back of the
-sampled token and one decode step — entirely on device tensors. The host
-does not look at any of it until the chunk is done: the caller reads the
-token buffer and ``done`` once per chunk. (Steps after a row is done
-still run until the chunk ends — their tokens are -1 and change no
-counter; the JAX ``while_loop`` exits instead. A CUDA graph of the step is
-a later PR.)
+sampled token and one decode step — on device tensors. Like JAX's
+``lax.while_loop`` (:125-127), the chunk stops before a step once every
+row is done. On a card the host reads ``done`` without draining the
+queue: each step copies it to pinned memory right after the sampling,
+before the decode step, and the next step waits only for that copy, so
+the decode step it enqueued keeps the card busy meanwhile.
 
 Reference behaviour kept: stop ids {151643, 151645} end generation and are
 not counted; the sampled token is fed back even when it is a stop id; the
@@ -89,9 +89,10 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
                    top_p: float, top_k: int = 50, chunk_len: int = 64,
                    stop_tokens: Tuple[int, ...] = (151643, 151645),
                    limit: int = None) -> torch.Tensor:
-    """Run ``min(chunk_len, limit)`` steps on device; returns the token
-    buffer [B, chunk_len] (-1 where a row was already done or past the
-    limit). ``state`` is advanced in place."""
+    """Run up to ``min(chunk_len, limit)`` steps, stopping once every row
+    is done (JAX's ``cond``); returns the token buffer [B, chunk_len] (-1
+    where a row was already done, or past the last step). ``state`` is
+    advanced in place."""
     b = state.logits.shape[0]
     dev = state.logits.device
     n_steps = chunk_len if limit is None else min(chunk_len, limit)
@@ -99,7 +100,20 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     stops = torch.tensor(stop_tokens, dtype=torch.int64, device=dev)
     rows = torch.arange(b, device=dev)
     p = state.prompt_slots
+    # ``done`` as of the last sampling, copied to the host behind an event
+    # (on a card); on the CPU, and before the first step, read directly
+    done_host, copied = None, None
+    if dev.type == "cuda":
+        done_host = torch.empty(b, dtype=torch.bool, pin_memory=True)
+        copied = torch.cuda.Event()
     for t in range(n_steps):
+        if done_host is None or t == 0:
+            if bool(state.done.all()):
+                break
+        else:
+            copied.synchronize()
+            if bool(done_host.all()):
+                break
         # sample_residual with no exclusion is sample_token; a pending
         # exclusion is consumed by exactly one draw
         token = sample_residual(state.logits, state.generator, temperature,
@@ -120,6 +134,9 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
             (_distinct_count(state.ring) <= FUSE_DISTINCT)
         state.done = state.done | (active & is_stop) | fused
         state.aborted = state.aborted | fused
+        if done_host is not None:
+            done_host.copy_(state.done, non_blocking=True)
+            copied.record()
 
         # feed the sampled token back (stop ids included; rows already
         # done feed a dummy whose logits are never used)

@@ -305,15 +305,18 @@ def q8_decode_all_fused_plain(x0, nhb0, post_lns, norms_next, q_norms,
                               k_norms, cos, sin, bias_row, kv_k, kv_v,
                               qkv_w: Q8Weight, o_w: Q8Weight, gu_w: Q8Weight,
                               down_w: Q8Weight, head_w: Q8Weight,
-                              eps: float):
+                              eps: float, chunk: int = None):
     """Plain version of K5 (JAX ``_q8_decode_all_kernel`` :1773 in natural
     order), step by step: per layer the packed qkv, qk-norm and rope in f32,
     GQA attention of the current token (f32 score, f32 value) and the
     cached slots (bf16 q, k, v, probabilities rounded to bf16 for p.v, one
     exact softmax with the f32 sum), o + residual, post norm, gate_up, SiLU
     gate, down + residual and ``norms_next[l]``; the residual stays f32;
-    then the head. Returns (logits [1, vocab_pad] f32, k_new, v_new
-    [L, kh, D] f32)."""
+    then the head. With ``chunk`` the attention is the kernel's split-KV
+    combine instead (``flash_decode.split_kv_plain``: chunks of ``chunk``
+    slots, the current token's term first). Returns (logits [1, vocab_pad]
+    f32, k_new, v_new [L, kh, D] f32)."""
+    from .flash_decode import split_kv_plain
     f32, bf16 = torch.float32, torch.bfloat16
     n_layers, kh, _, hd = kv_k.shape
     qd = o_w.q.shape[-1]
@@ -335,14 +338,22 @@ def q8_decode_all_fused_plain(x0, nhb0, post_lns, norms_next, q_norms,
         v_new.append(v)
         qg = q.reshape(kh, group, hd)
         s_cur = (qg * k[:, None]).sum(-1) * scale                # [kh, g]
-        s = torch.einsum("kgd,ksd->kgs", qg.to(bf16).to(f32),
-                         kv_k[l].to(bf16).to(f32)) * scale + bias
-        m = torch.maximum(s.amax(-1), s_cur)
-        p, p_cur = torch.exp(s - m[..., None]), torch.exp(s_cur - m)
-        acc = (torch.einsum("kgs,ksd->kgd", p.to(bf16).to(f32),
-                            kv_v[l].to(bf16).to(f32))
-               + p_cur[..., None] * v[:, None])
-        xm = (acc / (p.sum(-1) + p_cur)[..., None]).reshape(1, qd)
+        if chunk is not None:
+            xm = split_kv_plain(
+                qg.to(bf16).reshape(1, 1, kh * group, hd),
+                kv_k[l].to(bf16).transpose(0, 1)[None],
+                kv_v[l].to(bf16).transpose(0, 1)[None], bias[:, None],
+                chunk, cur=(s_cur.reshape(1, kh * group, 1), v[None]),
+                scale=scale).reshape(1, qd)
+        else:
+            s = torch.einsum("kgd,ksd->kgs", qg.to(bf16).to(f32),
+                             kv_k[l].to(bf16).to(f32)) * scale + bias
+            m = torch.maximum(s.amax(-1), s_cur)
+            p, p_cur = torch.exp(s - m[..., None]), torch.exp(s_cur - m)
+            acc = (torch.einsum("kgs,ksd->kgd", p.to(bf16).to(f32),
+                                kv_v[l].to(bf16).to(f32))
+                   + p_cur[..., None] * v[:, None])
+            xm = (acc / (p.sum(-1) + p_cur)[..., None]).reshape(1, qd)
         h1 = q8_matmul_plain(xm, layer(o_w, l)) + res
         gu = q8_matmul_plain(_rms_f32(h1, post_lns[l], eps), layer(gu_w, l))
         act = torch.nn.functional.silu(gu[:, :ffn]) * gu[:, ffn:]
@@ -380,10 +391,35 @@ def q8_decode_all_fused(x0, nhb0, post_lns, norms_next, q_norms, k_norms,
 
 
 MEGA_HEAD_DIM = 128           # K5: 32 lanes x 4 columns per head
+MEGA_STAGES = ("qkv", "attention", "o", "gate_up", "down")   # per layer
+
+
+def q8_decode_all_stage_ms(*args):
+    """K5's time by stage, read by its stage timer in one launch on CUDA
+    (the arguments of :func:`q8_decode_all_fused`): ms summed over the
+    layers for each of ``MEGA_STAGES`` (gate_up with the post norm, down
+    with the next layer's input norm), each from the grid barrier before it
+    to the one after it as block 0 sees it, so the slowest block's work
+    plus the barrier; ``head``, block 0's share of the head after the last
+    barrier; ``span``, block 0's whole run on the card's global timer, which
+    the stages add up to. Returns (that dict, the launch's outputs)."""
+    n_layers = args[9].shape[0]
+    stamps = torch.zeros(5 * n_layers + 4, dtype=torch.int64,
+                         device=args[0].device)
+    out = _launch_mega(*args, stamps=stamps)
+    st = stamps.cpu()
+    span_ns = int(st[-1] - st[0])
+    cycles = st[1:-1].diff().double()
+    ms = cycles * (span_ns / 1e6 / float(cycles.sum()))
+    stages = {name: float(ms[j:5 * n_layers:5].sum())
+              for j, name in enumerate(MEGA_STAGES)}
+    stages.update(head=float(ms[5 * n_layers]), span=span_ns / 1e6)
+    return stages, out
 
 
 def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
-                 bias_row, kv_k, kv_v, qkv_w, o_w, gu_w, down_w, head_w, eps):
+                 bias_row, kv_k, kv_v, qkv_w, o_w, gu_w, down_w, head_w, eps,
+                 stamps=None):
     global mega_launches
     from ..kernels import build
     if x0.dim() != 2 or x0.shape[0] != 1:
@@ -455,12 +491,18 @@ def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
     logits = torch.empty((1, vp), dtype=torch.float32, device=dev)
     kv_new = torch.empty((2, n_layers, kh, hd), dtype=torch.float32,
                          device=dev)
+    # the attention items' partials (m, l, acc of 2 query rows per chunk;
+    # the kernel picks at most one chunk per 32 slots)
+    att = torch.empty(kh * -(-s_len // 32) * 2 * (hd + 2),
+                      dtype=torch.float32, device=dev)
     code = build.lib().q8_decode_all(
         *(build.ptr(t) for t in (x0, nhb0, post_lns, norms_next, q_norms,
                                  k_norms, cos, sin, bias_row, kv_k, kv_v)),
         *(build.ptr(a) for w, _ in weights for a in w),
         qkv_s, xm_s, res_s, h1_s, act_s, build.ptr(logits),
-        build.ptr(kv_new[0]), build.ptr(kv_new[1]),
+        build.ptr(kv_new[0]), build.ptr(kv_new[1]), build.ptr(att),
+        build.ptr(build.tickets(dev, kh)),
+        None if stamps is None else build.ptr(stamps),
         n_layers, h, qd, ffn, kh, s_len, vp, float(eps), float(hd ** -0.5),
         build.stream_ptr(dev))
     build.check(code, "q8_decode_all")

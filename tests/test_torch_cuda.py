@@ -11,6 +11,8 @@ multiples of the kernels' tiles); ``chip_smoke.py`` covers the main
 path's own shapes.
 """
 
+import time
+
 import pytest
 import torch
 
@@ -159,11 +161,90 @@ def test_flash_decode_i8_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                       # 20 rows > 18
         tfd.flash_decode_attention(q10, kq, vq,
                                    torch.zeros(1, 10, 64, device=dev), ks, vs)
-    with pytest.raises(ValueError):                       # shared memory
-        big = _i8_cache(dev, 1, 3000, 8, seed=1)
-        tfd.flash_decode_attention(
-            torch.zeros(1, 9, 16, 128, device=dev, dtype=torch.bfloat16),
-            big[0], big[1], torch.zeros(1, 9, 3000, device=dev), *big[2:])
+
+
+def _verify_bias(dev, b, t, s, lo=40, tail=100):
+    """The verify mask: row i sees slots [lo, s - tail - t + i]."""
+    j = torch.arange(s, device=dev)
+    i = torch.arange(t, device=dev)[:, None]
+    return torch.where((j >= lo) & (j <= s - tail - t + i), 0.0,
+                       -1e30).float().expand(b, t, s).contiguous()
+
+
+# the cache lengths the split-KV design opened: S = 2313 is an engine
+# built with n_predict = 2048 (256 + 2048 + 9), whose first verify round
+# raised before; 8192 at T = 1
+LONG = [(9, 2313), (9, 2816), (9, 4105), (1, 8192)]
+
+
+@pytest.mark.parametrize("t,s", LONG)
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_flash_decode_kernels_take_long_caches(dev, t, s, cache):
+    g = torch.Generator(device=dev).manual_seed(s + t)
+    q = (torch.randn(1, t, 16, 128, generator=g, device=dev) / 11.3).to(
+        torch.bfloat16)
+    bias = _verify_bias(dev, 1, t, s)
+    if cache == "int8":
+        kq, vq, ks, vs = _i8_cache(dev, 1, s, 8, seed=s)
+        args = (q, kq, vq, bias, ks, vs)
+    else:
+        args = (q, torch.randn(1, s, 8, 128, generator=g, device=dev).to(
+            torch.bfloat16), torch.randn(1, s, 8, 128, generator=g,
+                                         device=dev).to(torch.bfloat16), bias)
+    before = (tfd.launches, tfd.launches_i8)
+    out = tfd.flash_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert (tfd.launches + tfd.launches_i8) == sum(before) + 1
+    # bf16 output; expf, the chunks' rounding point and the sum order
+    assert _rel_err(out, tfd.flash_decode_plain(*args)) < 2e-2
+
+
+@pytest.mark.parametrize("chunk", [17, 32, 96, 1033])
+@pytest.mark.parametrize("t", [1, 9])
+def test_flash_decode_kernel_takes_any_chunk(dev, t, chunk):
+    """One chunk per tile, several double-buffered tiles per chunk, a
+    chunk below the tile, and the whole row in one chunk."""
+    g = torch.Generator(device=dev).manual_seed(chunk + t)
+    s = 1033
+    q = (torch.randn(1, t, 16, 128, generator=g, device=dev) / 11.3).to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, s, 8, 128, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    bias = _verify_bias(dev, 1, t, s)
+    out = tfd._launch(q, k, v, bias, chunk=chunk)
+    assert _rel_err(out, tfd.flash_decode_plain(q, k, v, bias)) < 2e-2
+    kq, vq, ks, vs = _i8_cache(dev, 1, s, 8, seed=chunk)
+    out = tfd._launch_i8(q, kq, vq, bias, ks, vs, chunk=chunk)
+    assert _rel_err(out, tfd.flash_decode_plain(q, kq, vq, bias, ks,
+                                                vs)) < 2e-2
+
+
+def test_flash_decode_tickets_reset_between_calls(dev):
+    """Back-to-back calls at different S, T and batch on one stream, with
+    no sync between them: every call's last block resets its tickets, so
+    each result matches its plain version and the buffer ends at zero."""
+    from fun_asr_gguf_tpu_torch.kernels import build
+    g = torch.Generator(device=dev).manual_seed(7)
+    calls = []
+    for b, t, s, cache in [(1, 1, 768, "bf16"), (1, 9, 2313, "int8"),
+                           (2, 9, 777, "bf16"), (1, 1, 33, "int8"),
+                           (3, 2, 4105, "bf16"), (1, 9, 1033, "bf16"),
+                           (1, 1, 8192, "int8"), (1, 1, 768, "bf16")]:
+        q = (torch.randn(b, t, 16, 128, generator=g, device=dev) / 11.3).to(
+            torch.bfloat16)
+        bias = _verify_bias(dev, b, t, s, lo=3, tail=5)
+        if cache == "int8":
+            kq, vq, ks, vs = _i8_cache(dev, b, s, 8, seed=s)
+            args = (q, kq, vq, bias, ks, vs)
+        else:
+            args = (q, *(torch.randn(b, s, 8, 128, generator=g, device=dev)
+                         .to(torch.bfloat16) for _ in range(2)), bias)
+        calls.append(args)
+    outs = [tfd.flash_decode_attention(*a) for a in calls]
+    torch.cuda.synchronize()
+    for a, out in zip(calls, outs):
+        assert _rel_err(out, tfd.flash_decode_plain(*a)) < 2e-2
+    assert int(build.tickets(dev, 1).abs().sum()) == 0
 
 
 QD, H, F, NQ = 512, 256, 384, 640     # K4 test widths (all % 32 == 0)
@@ -360,6 +441,41 @@ def test_q8_decode_all_kernel_matches_plain(dev, s_len, visible):
     assert _rel_err(v_new, ref[2]) < K5_TOL
 
 
+@pytest.mark.parametrize("s_len,visible", [(1024, (56, 57)),
+                                           (1024, (56, 256)),
+                                           (1024, (56, 1000)),
+                                           (768, (0, 767))])
+def test_q8_decode_all_kernel_attends_any_number_of_visible_slots(dev, s_len,
+                                                                  visible):
+    """1, 200, 944 and 767 visible cached slots through the split-KV
+    attention items (every chunk but one masked, some, almost none)."""
+    args = _mega(dev, seed=visible[1], s_len=s_len, visible=visible)
+    logits, k_new, v_new = tqm.q8_decode_all_fused(*args)
+    ref = tqm.q8_decode_all_fused_plain(*args)
+    assert torch.isfinite(logits).all()
+    assert _rel_err(logits, ref[0]) < K5_TOL
+    assert _cos_sim(logits, ref[0]) > 0.9999
+    assert _rel_err(v_new, ref[2]) < K5_TOL
+
+
+def test_q8_decode_all_stage_timer_leaves_the_step_unchanged(dev):
+    """The timed launch gives the untimed one's outputs bit for bit; its
+    stages are positive and add up to block 0's span, which lies inside
+    the host's clock around the launch and its read-back."""
+    args = _mega(dev, seed=5, s_len=1024, visible=(40, 700))
+    plain = tqm.q8_decode_all_fused(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages, timed = tqm.q8_decode_all_stage_ms(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(plain, timed):
+        assert torch.equal(a, b)
+    parts = [stages[k] for k in (*tqm.MEGA_STAGES, "head")]
+    assert all(p > 0 for p in parts)
+    assert sum(parts) == pytest.approx(stages["span"], rel=1e-6)
+    assert 0 < stages["span"] < host_ms
+
+
 def test_q8_decode_all_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                       # b = 2
         tqm.q8_decode_all_fused(*_mega(dev, seed=1, b=2))
@@ -509,3 +625,30 @@ def test_q8i_layer_fused_kernel_refuses_what_it_does_not_take(dev):
         tqm.q8i_layer_fused(*bad, 1e-6)
     with pytest.raises(ValueError):                       # qkv stage halves
         tqm.q8i_layer_fused(*args[:8], None, 1e-6)
+
+
+def test_p12_probe_stage_matches_plain(dev):
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as p12
+    args = p12.p12_inputs(dev)
+    ref = p12.p12_plain(*args)
+    before = p12.launches
+    for n in p12.CHUNK_COUNTS:
+        got = p12.p12_stage(*args, -(-p12.S // n))
+        assert _rel_err(got, ref) < p12.TOL
+    assert p12.launches == before + len(p12.CHUNK_COUNTS)
+
+
+def test_p5_probe_kernels_match_plain(dev):
+    from fun_asr_gguf_tpu_torch.probes import q8_bw_probe as p5
+    shapes = (("o", 256, 1024), ("gate_up", 384, 512), ("down", 256, 1536),
+              ("qkv", 320, 512))
+    ws = p5.make_weights(dev, layers=3, shapes=shapes, seed=1)
+    isum, fsum = p5.stream_sum(ws)
+    want_i, want_f = p5.stream_sum_plain(ws)
+    assert int(isum.sum()) == want_i
+    assert abs(float(fsum.double().sum()) - want_f) < 1e-4 * abs(want_f)
+    x = torch.randn(1, 1536, device=dev).to(torch.bfloat16)
+    ref = p5.gemv_plain(ws, x)
+    assert _rel_err(p5.gemv(ws, x), ref) < p5.GEMV_TOL
+    ws16 = [tqm.Q8Weight(w.q, w.d.half()) for w in ws]
+    assert _rel_err(p5.gemv(ws16, x), ref) < p5.GEMV_TOL

@@ -207,6 +207,58 @@ def test_batched_and_streaming_entry_points_raise(jax_ckpt, wav):
             call()
 
 
+def _params(fn, drop=()):
+    import inspect
+    return [(p.name, p.default, p.kind)
+            for p in inspect.signature(fn).parameters.values()
+            if p.name not in drop]
+
+
+def test_facade_signatures_equal_jax():
+    """The same names, order and defaults as JAX's constructor and
+    ``create_asr_engine``; ``device`` (the port's last parameter) aside."""
+    from fun_asr_gguf_tpu import engine as jeng
+    from fun_asr_gguf_tpu_torch import engine as teng
+    assert _params(teng.FunASREngine.__init__, drop=("device",)) == \
+        _params(jeng.FunASREngine.__init__)
+    assert _params(teng.FunASREngine.__init__)[-1][0] == "device"
+    assert _params(teng.create_asr_engine) == \
+        _params(jeng.create_asr_engine)
+
+
+def test_facade_takes_jax_serving_arguments(jax_ckpt, tmp_path):
+    """``create_asr_engine(ckpt, tokens_path)`` binds the path as JAX does;
+    the serving arguments JAX's server passes are accepted and land in the
+    config; ``warmup_all_buckets`` warms every prefill bucket."""
+    from fun_asr_gguf_tpu_torch import FunASREngine, create_asr_engine
+    ckpt = jax_ckpt[0]
+    eng = FunASREngine(ckpt, device="cpu", warmup_all_buckets=True,
+                       compilation_cache_dir=str(tmp_path / "cache"),
+                       ctc_beam_topk=4, hotword_beam_bonus=1.5)
+    c = eng.config
+    assert (c.warmup_all_buckets, c.ctc_beam_topk, c.hotword_beam_bonus,
+            c.compilation_cache_dir) == (True, 4, 1.5, str(tmp_path / "cache"))
+    kw = dict(PORT_KW, warmup=True, warmup_all_buckets=True,
+              prefill_buckets=(16, 32), speculative=False)
+    kw.pop("verbose")
+    eng = create_asr_engine(ckpt, os.path.join(ckpt, "tokens.txt"), None,
+                            None, True, 0.6, 10, False, **kw)
+    try:
+        assert eng.config.tokens_path == os.path.join(ckpt, "tokens.txt")
+        seen = []
+        prefill = eng.models.prefill
+        eng.models.prefill = lambda p, **k: seen.append(len(p)) or prefill(
+            p, **k)
+        eng.models._warmup()
+        assert sorted(set(seen)) == [16, 32]
+        eng.models.config.warmup_all_buckets = False
+        seen.clear()
+        eng.models._warmup()
+        assert set(seen) == {16}
+    finally:
+        eng.cleanup()
+
+
 NO_JAX_SCRIPT = r"""
 import base64, os, sys
 import numpy as np

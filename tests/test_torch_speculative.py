@@ -371,3 +371,47 @@ def test_engine_speculation_settings_keep_greedy_ids(engine_inputs,
     spec, rounds = _engine_ids(engine_inputs, monkeypatch, spec_min_accept=0,
                                fuse_projections=fuse)
     assert spec == plain and rounds > 0
+
+
+# ---------------------------------------------------------------------------
+# the plain chunk stops once every row is done, as JAX's while_loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_plain_chunk_stops_at_the_step_its_row_stops(weights, k,
+                                                     monkeypatch):
+    """A row that draws a stop id at step t: the chunk runs t + 1 decode
+    steps (the stop id is fed back, then the loop ends), as JAX's
+    ``generate_chunk``, whose ``state.step`` says the same. t is the k-th
+    step of a greedy run whose id did not occur before it."""
+    jp, tps = weights
+    tp = tps["packed"]
+    ids = _greedy(tp, 12)
+    t = [i for i in range(len(ids)) if ids[i] not in ids[:i]][2 * k]
+    stop = ids[t]
+    calls = [0]
+    step = tgen.qwen3_decode_step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return step(*args, **kwargs)
+    monkeypatch.setattr(tgen, "qwen3_decode_step", counted)
+    st = _state(tp)
+    buf = tgen.generate_chunk(tp, st, CFG, 0.0, 1.0, 50, chunk_len=16,
+                              stop_tokens=(stop,))
+    assert calls[0] == st.step == t + 1
+    assert buf[0, :t + 1].tolist() == ids[:t + 1]
+    assert (buf[0, t + 1:] == -1).all() and bool(st.done[0])
+    emb, mask = _prompt()
+    jst, jtok = jgen.generate_chunk(
+        jp, jgen.prefill_init(jp, jnp.asarray(emb), jnp.asarray(mask),
+                              jax.random.PRNGKey(0), CFG, max_len=P + 64),
+        CFG, jnp.asarray(0.0), jnp.asarray(1.0), 50, chunk_len=16,
+        stop_tokens=(stop,), greedy=True)
+    assert int(jst.step) == t + 1
+    assert _ids(np.asarray(jtok)[0]) == _ids(buf[0])
+    # a chunk that starts with every row done runs no step
+    calls[0] = 0
+    tgen.generate_chunk(tp, st, CFG, 0.0, 1.0, 50, chunk_len=16,
+                        stop_tokens=(stop,))
+    assert calls[0] == 0 and st.step == t + 1
