@@ -25,10 +25,17 @@ Phases, one line each (any failure raises and exits non-zero):
    with one (the attention's share is the difference), K6 (the q8_0 x q8_0 block-dot
    product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
    (the int8-dot layer chain, with and without the next-layer qkv) at
-   m = 1 and m = 9 on the same layer views; then the probes P12 (the
-   split-KV stage alone at chunk counts 1 ... 32) and P5 (the achievable
-   stream rate of 28 layers of q8_0 bytes, summed, through the dequant
-   GEMV and with f16 scales), each against its plain version;
+   m = 1 and m = 9 on the same layer views; then the probes, each kernel
+   against its plain version: P12 (the split-KV stage alone at chunk
+   counts 1 ... 32), P6-P11 (the natural-order scale expansion, a
+   transpose, rope by lane shuffle and by a rotation product, a batched
+   f32 dot, row-pair slices, a head sum over head- and slot-major
+   blocks), P0-P4 (P2: the 28 layers of K4's chain in one launch, and its
+   barrier-only launch at K4's and at K5's grid; P1: 28 K4 launches; the
+   split of a layer's time into stream, per-call fixed cost, barriers and
+   stage work; P3, P4; P0: the real fused and all-layers decode steps in
+   ms/token) and P5 (the achievable stream rate of 28 layers of q8_0
+   bytes, summed, through the dequant GEMV and with f16 scales);
 4. end-to-end transcription through ``create_asr_engine(...).transcribe()``
    of a 60 s synthetic clip on a full-width random checkpoint (70-layer
    SANM encoder + Qwen3-0.6B): the JAX facade's defaults (``auto`` →
@@ -51,8 +58,9 @@ Phases, one line each (any failure raises and exits non-zero):
    engine; and ms per decode step and per verify round, engine against
    engine in turns.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Then the wall time; the second-to-last line is ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
+JAX.
 """
 
 import contextlib
@@ -106,7 +114,8 @@ K7_TOL = 5e-3     # as K6, and rsqrtf against the plain 1/sqrt can flip an
 LAYERS = 28       # Qwen3-0.6B: K4 rows cycle the layers, so L2 is cold
 # the bound of a kernel: NVIDIA's H100 SXM data sheet at 700 W (dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12,
+                  "f32": 67e12}   # f32 outside the tensor cores
 
 
 def log(msg):
@@ -658,12 +667,18 @@ def phase_k2(dev, gen):
 
 
 def phase_probes(dev):
-    """The probes P12 (the split-KV stage alone at chunk counts 1 ... 32)
-    and P5 (the stream rate of 28 layers of q8_0 bytes: summed, through
-    the m = 1 dequant GEMV, and with f16 scales), each against its plain
-    version; their rows for the kernels line (on no path: 0 launches)."""
+    """The probes, each kernel against its plain version: P12 (the
+    split-KV stage alone at chunk counts 1 ... 32) and P6-P11
+    (``q8_mega_probes``), P5 (the stream rate of 28 layers of q8_0 bytes:
+    summed, through the m = 1 dequant GEMV, and with f16 scales), and
+    P0-P4 (``q8_probe``: P2's walk of 28 layers in one launch and its
+    barrier-only launch at K4's and K5's grids, P1's 28 K4 launches, the
+    split of a layer's time, P3, P4, and P0's real fused and all-layers
+    steps in ms/token); their rows for the kernels line (on no path: 0
+    launches)."""
     from fun_asr_gguf_tpu_torch.probes import q8_bw_probe as p5
     from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as p12
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as p0
     rows = {}
     res = p12.main(dev)
     at = next(r for r in res["rows"] if r["chunk"] == p12.CS)
@@ -671,6 +686,22 @@ def phase_probes(dev):
         ms=at["ms"], plain_ms=res["plain_ms"], library_ms=None,
         max_abs_err=max(r["max_abs_err"] for r in res["rows"]),
         **bound(res["n_bytes"], 4 * p12.QH * (p12.SLOT + 1) * p12.D))
+    for key, r in res["probes"].items():
+        rows[key] = probe_row(r, "f32")
+    res = p0.main(dev)
+    for key in ("p2_q8_layer_walk", "p2_barrier_only", "p3_reshape",
+                "p4_scale_expand_f16_tiled"):
+        rows[key] = probe_row(res[key],
+                              "bf16" if key == "p2_q8_layer_walk" else "f32")
+    sp = res["split"]
+    us = sp["us_per_layer"]
+    log(f"[3] P0-P2 per layer: P1 (28 K4a launches) {us['p1']:.2f} us, "
+        f"P2 (one launch) {us['p2']:.2f} us, barriers "
+        f"{sp['barrier_us']:.2f} us (K5's grid and 140 barriers: "
+        f"{res['p2_barrier_only_k5']['ms']:.4f} ms a step), stream at "
+        f"P5(a) {sp['stream_us']:.2f} us; P0 fused "
+        f"{res['p0']['fused_ms']:.3f} ms/token, all-layers "
+        f"{res['p0']['mega_ms']:.3f} ms/token")
     res = p5.main(dev)
     for way, name, ops in (("a", "p5a_q8_stream_sum", 0),
                            ("b", "p5b_q8_stream_gemv", 2),
@@ -684,6 +715,13 @@ def phase_probes(dev):
         f"({100 * res['a']['gbps'] * 1e9 / HBM_BYTES_PER_S:.1f} % of the "
         f"3.35 TB/s data sheet peak)")
     return rows
+
+
+def probe_row(r, kind):
+    """A probe's row of the kernels line from its numbers."""
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"], max_abs_err=r["max_abs_err"],
+                **bound(r["n_bytes"], r["n_ops"], kind))
 
 
 # (name, CUDA source, the TPU kernel it replaces)
@@ -717,15 +755,38 @@ PROBES = [
      "experiments/q8_bw_probe.py:92 (dq_kern :144)"),
     ("p5c_q8_stream_gemv_f16", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
      "experiments/q8_bw_probe.py:196"),
+    ("p2_q8_layer_walk", "fun_asr_gguf_tpu_torch/csrc/q8_probe.cu",
+     "experiments/q8_probe.py:247 (mega_multi :246)"),
+    ("p2_barrier_only", "fun_asr_gguf_tpu_torch/csrc/q8_probe.cu",
+     "experiments/q8_probe.py:247 (mega_multi :246)"),
+    ("p3_reshape", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_probe.py:287"),
+    ("p4_scale_expand_f16_tiled", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_probe.py:305"),
+    ("p6_scale_expand_natural", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:46"),
+    ("p7_transpose", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:62"),
+    ("p8a_rope_shuffle", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:87"),
+    ("p8b_rope_matrix", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:103"),
+    ("p9_batched_dot", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:121"),
+    ("p10_pair_scale", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:137"),
+    ("p11_head_sum", "fun_asr_gguf_tpu_torch/csrc/probes.cu",
+     "experiments/q8_mega_probes.py:154"),
 ]
 
-
 def main():
+    t0 = time.perf_counter()
     kind = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
     launches = phase_e2e(dev)
+    log(f"[5] wall time {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches.get(name, 0), **rows[name])

@@ -265,6 +265,12 @@ __host__ __device__ inline size_t nh_bytes(int h) {
   return (static_cast<size_t>(h) * 2 + 15) / 16 * 16;
 }
 
+// the launch's dynamic shared memory: the attention stage's does not grow
+// with S
+inline size_t step_smem(int h) {
+  return nh_bytes(h) + AttSmem::bytes + kAuxFloats * sizeof(float);
+}
+
 __global__ void __launch_bounds__(kThreads)
 q8_decode_all_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -419,9 +425,7 @@ extern "C" int q8_decode_all(
          static_cast<float*>(att), static_cast<int*>(tickets),
          L, h, qd, f, kh, S, vp, eps, scale, 0, 0,
          static_cast<long long*>(stamps)};
-  // the attention stage's shared memory does not grow with S
-  const size_t smem =
-      nh_bytes(h) + AttSmem::bytes + kAuxFloats * sizeof(float);
+  const size_t smem = step_smem(h);
   int dev = 0, blocks = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = grid_blocks(dev, smem, &blocks);
@@ -435,4 +439,16 @@ extern "C" int q8_decode_all(
       dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The co-resident grid K5 launches at width h (blocks, out through
+// `blocks`, an int): the P2 probe's barrier-only launch at K5's grid
+// (csrc/q8_probe.cu). Returns a cudaError_t.
+extern "C" int q8_decode_all_grid(int h, void* blocks) {
+  if (h < 32 || h % 32) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = grid_blocks(dev, step_smem(h), static_cast<int*>(blocks));
+  return static_cast<int>(e);
 }

@@ -225,3 +225,20 @@ extern "C" int q8_layer_fused(const void* xm, const void* resid,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The co-resident grid K4 launches at row count m and width h (blocks, out
+// through `blocks`, an int): what the P2 probe (csrc/q8_probe.cu) runs its
+// walk and its barrier-only launch on. Returns a cudaError_t.
+extern "C" int q8_layer_fused_grid(int m, int h, void* blocks) {
+  if (m < 1 || m > 16 || h % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  int* out = static_cast<int*>(blocks);
+  if (e == cudaSuccess) {
+    if (m == 1) e = grid_blocks<1>(dev, h, out);
+    else if (m <= 4) e = grid_blocks<4>(dev, h, out);
+    else e = grid_blocks<16>(dev, h, out);
+  }
+  return static_cast<int>(e);
+}

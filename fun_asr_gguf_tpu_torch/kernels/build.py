@@ -49,6 +49,17 @@ SIGNATURES = {
     "q8_stream_sum": [_P] * 10 + [_I] * 5 + [_P],
     "q8_stream_gemv": [_P] * 10 + [_I] * 10 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "q8_layer_fused_grid": [_I, _I, _P],
+    "q8_decode_all_grid": [_I, _P],
+    "q8_probe_p2": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    "probe_reshape": [_P] * 2 + [_I] * 4 + [_P],
+    "probe_scale_expand": [_P] * 3 + [_I] * 4 + [_P],
+    "probe_transpose": [_P] * 2 + [_I] * 2 + [_P],
+    "probe_rope_shuffle": [_P] * 4 + [_I] + [_P],
+    "probe_rope_matrix": [_P] * 5 + [_I] + [_P],
+    "probe_batched_dot": [_P] * 3 + [_I] * 3 + [_P],
+    "probe_pair_scale": [_P] * 2 + [_I] + [_P],
+    "probe_head_sum": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -140,6 +151,16 @@ def check(code: int, name: str):
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {code}")
+
+
+def grid_blocks(name: str, *args) -> int:
+    """The co-resident grid a cooperative kernel launches, from its C
+    query ``name`` (``q8_layer_fused_grid``, ``q8_decode_all_grid``) on the
+    current device."""
+    n = ctypes.c_int(0)
+    check(getattr(lib(), name)(*args, ctypes.c_void_p(ctypes.addressof(n))),
+          name)
+    return n.value
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

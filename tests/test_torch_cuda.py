@@ -652,3 +652,173 @@ def test_p5_probe_kernels_match_plain(dev):
     assert _rel_err(p5.gemv(ws, x), ref) < p5.GEMV_TOL
     ws16 = [tqm.Q8Weight(w.q, w.d.half()) for w in ws]
     assert _rel_err(p5.gemv(ws16, x), ref) < p5.GEMV_TOL
+
+
+def _small_probes(dev):
+    """(probe, kernel, plain, inputs on the card, tolerance) of P3, P4,
+    P6–P11: exact where the kernel rounds as the plain version does, JAX's
+    atol where it sums in another order."""
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as mp
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    x = torch.arange(2048, dtype=torch.float32, device=dev).reshape(1, 2048)
+    q8, r, cos, sin = mp.p8_inputs(dev)
+    return [
+        ("p3_reshape", lambda x: qp.reshape(x, (16, 128)),
+         lambda x: qp.reshape_plain(x, (16, 128)), (x,), 0.0),
+        ("p4_scale_expand_f16_tiled",
+         lambda q, d: mp.expand_scales(q, d, True),
+         lambda q, d: mp.expand_scales_plain(q, d, True), qp.p4_inputs(dev),
+         0.0),
+        ("p6_scale_expand_natural",
+         lambda q, d: mp.expand_scales(q, d, False),
+         lambda q, d: mp.expand_scales_plain(q, d, False), mp.p6_inputs(dev),
+         0.0),
+        ("p7_transpose", mp.transpose, mp.transpose_plain,
+         mp.p7_inputs(dev), 0.0),
+        ("p8a_rope_shuffle", mp.rope_shuffle, mp.rope_shuffle_plain,
+         (q8, cos, sin), 0.0),
+        ("p8b_rope_matrix", mp.rope_matrix, mp.rope_matrix_plain,
+         (q8, r, cos, sin), mp.SUM_TOL),
+        ("p9_batched_dot", mp.batched_dot, mp.batched_dot_plain,
+         mp.p9_inputs(dev), mp.SUM_TOL),
+        ("p10_pair_scale", mp.pair_scale, mp.pair_scale_plain,
+         mp.p10_inputs(dev), 0.0),
+        ("p11_head_sum", mp.head_sum, mp.head_sum_plain, mp.p11_inputs(dev),
+         0.0),
+    ]
+
+
+def test_small_probe_kernels_match_plain(dev):
+    from fun_asr_gguf_tpu_torch.probes import probe_launches
+    for name, kernel, plain, args, tol in _small_probes(dev):
+        before = probe_launches[name]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert probe_launches[name] == before + 1, name
+        assert (got - plain(*args)).abs().max().item() <= tol, name
+
+
+def test_small_probe_kernels_take_ragged_shapes(dev):
+    """Shapes off the probes' own: tiles, warps and pairs cut short."""
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as mp
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = randn(37, 70)
+    assert torch.equal(mp.transpose(x), x.t())
+    x = randn(3, 40)
+    assert torch.equal(qp.reshape(x, (8, 15)), x.reshape(8, 15))
+    q = torch.randint(-128, 128, (5, 96), generator=g, device=dev,
+                      dtype=torch.int8)
+    for d in (torch.rand(5, 3, generator=g, device=dev),
+              torch.rand(5, 3, generator=g, device=dev).half()):
+        for tiled in (True, False):
+            assert torch.equal(mp.expand_scales(q, d, tiled),
+                               mp.expand_scales_plain(q, d, tiled))
+    q8, r, cos, sin = randn(13, 128), randn(128, 128), randn(128), randn(128)
+    assert torch.equal(mp.rope_shuffle(q8, cos, sin),
+                       mp.rope_shuffle_plain(q8, cos, sin))
+    assert _rel_err(mp.rope_matrix(q8, r, cos, sin),
+                    mp.rope_matrix_plain(q8, r, cos, sin)) < 1e-5
+    a, b = randn(3, 5, 128), randn(3, 77, 128)
+    assert _rel_err(mp.batched_dot(a, b), mp.batched_dot_plain(a, b)) < 1e-5
+    x = randn(7, 128)
+    assert torch.equal(mp.pair_scale(x), mp.pair_scale_plain(x))
+    kv = randn(3, 37, 128)
+    assert torch.equal(mp.head_sum(kv), mp.head_sum_plain(kv))
+    kv = kv.transpose(0, 1).contiguous()
+    assert torch.equal(mp.head_sum(kv, slot_major=True),
+                       mp.head_sum_plain(kv, slot_major=True))
+
+
+def test_p11_probe_reads_a_slot_major_block(dev):
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as mp
+    (kv,) = mp.p11_inputs(dev)
+    kv_s = kv.transpose(0, 1).contiguous()
+    assert torch.equal(mp.head_sum(kv_s, slot_major=True), mp.head_sum(kv))
+    assert torch.equal(mp.head_sum(kv_s, slot_major=True),
+                       mp.head_sum_plain(kv_s, slot_major=True))
+
+
+@pytest.mark.parametrize("layers,dims", [(3, (256, 128, 192, 384)),
+                                         (2, (96, 64, 160, 224))])
+def test_p2_probe_walk_and_barrier_only_launch(dev, layers, dims):
+    from fun_asr_gguf_tpu_torch.probes import probe_launches
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    xm, res, pw, nw, ws = qp.p2_inputs(dev, layers=layers, dims=dims)
+    before = dict(probe_launches)
+    got = qp.p2_walk(xm, res, pw, nw, ws)
+    for g, r in zip(got, qp.p2_plain(xm, res, pw, nw, ws)):
+        assert _rel_err(g, r) < qp.P2_TOL
+    for barriers, blocks in ((9, None), (15, qp.k5_grid(dims[1]))):
+        out, qkv = qp.p2_walk(xm, res, pw, nw, ws, barriers=barriers,
+                              blocks=blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(out, res) and not qkv.any()
+    assert (probe_launches["p2_q8_layer_walk"]
+            == before["p2_q8_layer_walk"] + 1)
+    assert probe_launches["p2_barrier_only"] == before["p2_barrier_only"] + 2
+
+
+def test_p2_probe_layers_leave_nothing_to_the_next(dev):
+    """Every layer rewrites all of the scratch it reuses (h1, act, out,
+    qkv): NaN scales in every layer but the last leave the result as it
+    is with sane ones."""
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    xm, res, pw, nw, ws = qp.p2_inputs(dev, layers=3,
+                                       dims=(256, 128, 192, 384))
+    want = [t.clone() for t in qp.p2_walk(xm, res, pw, nw, ws)]
+    bad = []
+    for w in ws:
+        d = w.d.clone()
+        d[:-1] = float("nan")
+        bad.append(tqm.Q8Weight(w.q, d))
+    got = qp.p2_walk(xm, res, pw, nw, bad)
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, r)
+
+
+def test_p1_probe_chain_launches_k4_per_layer(dev):
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    xm, res, pw, nw, ws = qp.p2_inputs(dev, layers=3,
+                                       dims=(256, 128, 192, 384))
+    before = tqm.fused_launches
+    got = qp.p1_chain(xm, res, pw, nw, ws)
+    assert tqm.fused_launches == before + 3
+    for g, r in zip(got, qp.p1_chain(xm, res, pw, nw, ws, plain=True)):
+        assert _rel_err(g, r) < qp.P1_TOL
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as mp
+    from fun_asr_gguf_tpu_torch.probes import q8_probe as qp
+    q, d = mp.p6_inputs(dev)
+    with pytest.raises(ValueError):                    # scales of 64 lanes
+        mp.expand_scales(q, d[:, :16].contiguous(), tiled=False)
+    with pytest.raises(TypeError):                     # bf16 scales
+        mp.expand_scales(q, d.to(torch.bfloat16), tiled=False)
+    with pytest.raises(TypeError):
+        mp.transpose(mp.p7_inputs(dev)[0].double())
+    q8, r, cos, sin = mp.p8_inputs(dev)
+    with pytest.raises(ValueError):                    # head_dim 64
+        mp.rope_shuffle(q8[:, :64].contiguous(), cos[:64].contiguous(),
+                        sin[:64].contiguous())
+    with pytest.raises(ValueError):                    # R on the CPU
+        mp.rope_matrix(q8, r.cpu(), cos, sin)
+    a, b = mp.p9_inputs(dev)
+    with pytest.raises(ValueError):                    # 9 rows per batch
+        mp.batched_dot(torch.randn(8, 9, 128, device=dev), b)
+    with pytest.raises(ValueError):                    # not contiguous
+        mp.pair_scale(torch.randn(128, 16, device=dev).t())
+    with pytest.raises(ValueError):
+        mp.head_sum(mp.p11_inputs(dev)[0][:, :, :64].contiguous())
+    with pytest.raises(ValueError):                    # sizes differ
+        qp.reshape(torch.zeros(1, 512, device=dev), (16, 128))
+    xm, res, pw, nw, ws = qp.p2_inputs(dev, layers=2, dims=(64, 32, 64, 96))
+    with pytest.raises(TypeError):                     # f32 xm
+        qp.p2_walk(xm.float(), res, pw, nw, ws)
+    with pytest.raises(ValueError):                    # qkv of another width
+        qp.p2_walk(xm, res, pw, nw, ws[:3] + [tqm.layer(ws[3], 0)])

@@ -335,5 +335,6 @@ def test_port_imports_nothing_of_the_jax_package():
     bad = {os.path.relpath(f, REPO): m for f in files
            for m in _imported_modules(f)
            if m == "jax" or m.startswith("jax.") or m == "fun_asr_gguf_tpu"
-           or m.startswith("fun_asr_gguf_tpu.")}
+           or m.startswith("fun_asr_gguf_tpu.") or m == "experiments"
+           or m.startswith("experiments.")}
     assert not bad, bad
