@@ -22,7 +22,9 @@ Phases, one line each (any failure raises and exits non-zero):
    m = 1 and m = 9 on layer views of stacked [28, n, k] weights, K5
    (the whole decode step in one launch) at full width on 28-layer
    head-major caches of S = 768 and 1024, with every slot visible and
-   with one (the attention's share is the difference), K6 (the q8_0 x q8_0 block-dot
+   with one (the attention's share is the difference), split by stage
+   with its stage timer, each GEMV stage's bytes over its time beside
+   P5's rates, K6 (the q8_0 x q8_0 block-dot
    product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
    (the int8-dot layer chain, with and without the next-layer qkv) at
    m = 1 and m = 9 on the same layer views; then the probes, each kernel
@@ -55,12 +57,19 @@ Phases, one line each (any failure raises and exits non-zero):
    prefill and one verify round through ``spec_generate``, and its card
    path against the CPU f32 path at that cache length; then stage timings, verify rounds and each kernel's launch count per
    path; the launches of one decode step and of one verify round per
-   engine; and ms per decode step and per verify round, engine against
-   engine in turns.
+   engine; ms per decode step and per verify round, engine against
+   engine in turns; and the host's enqueue of one all-layers step.
 
 Then the wall time; the second-to-last line is ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX.
+
+    python3 chip_smoke.py --parent DIR   # DIR: another checkout (e.g.
+                                         # the parent commit)
+
+also times that checkout's K5 in turns with this one's (phase 3), on the
+same inputs in the same process, and its all-layers decode step on this
+one's engine (phase 4).
 """
 
 import contextlib
@@ -104,9 +113,10 @@ K4_TOL = 5e-3     # same bf16 products; f32 sums in another order flip
                   # (K4 and K4c)
 K5_TOL = 3e-2     # K4's flips through 28 layers of one f32 residual, plus
                   # expf and the attention sums in another order (measured
-                  # <= 1.25e-2 on an H100)
+                  # <= 2.2e-2 on an H100, the parent design's K5 the same
+                  # on the same inputs)
 K5_COS = 0.9995   # cosine of the logits against the plain version (measured
-                  # >= 0.99991)
+                  # >= 0.99972)
 K6_TOL = 1e-4     # the same integer partials; the scales and the block sum
                   # in f32, in another order
 K7_TOL = 5e-3     # as K6, and rsqrtf against the plain 1/sqrt can flip an
@@ -169,7 +179,7 @@ def phase_build():
         f"({build.library_path().name} in {build.library_path().parent})")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, parent=None):
     from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
                                             quant_matmul)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -207,11 +217,16 @@ def phase_kernels(dev):
     w = stacked_weights(dev, gen)
     rows["q8_layer_fused"] = phase_k4(dev, gen, w)
     rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w)
-    rows["q8_decode_all"] = phase_k5(dev, gen, w)
+    rows["q8_decode_all"], k5_gbps = phase_k5(dev, gen, w, parent)
     rows["q8dot_matmul"] = phase_k6(dev, gen, w)
     rows["q8i_layer_fused"] = phase_k7(dev, gen, w)
     del w
-    rows.update(phase_probes(dev))
+    probe_rows, p5_gbps = phase_probes(dev)
+    rows.update(probe_rows)
+    log("[3] K5 stream rates (S=768, 1 visible slot; bytes over 28 layers "
+        "/ stage time with its barrier; head: block 0's share): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in k5_gbps.items())
+        + f" GB/s; P5(a) {p5_gbps['a']:.1f}, P5(b) {p5_gbps['b']:.1f} GB/s")
 
     # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
     bh, t, dd = 4, 1001, 128
@@ -419,7 +434,14 @@ def mega_inputs(dev, gen, w, s_len, valid_from, slot):
             w["qkv"], w["o"], w["gu"], w["dn"], w["head"], 1e-6)
 
 
-def phase_k5(dev, gen, w):
+# bytes of K5's streamed matrices at Qwen3-0.6B width (int8 + f32
+# scales): each GEMV stage over 28 layers, and the head
+K5_STAGE_BYTES = {"qkv": LAYERS * 4096 * 1152, "o": LAYERS * 1024 * 2304,
+                  "gate_up": LAYERS * 6144 * 1152,
+                  "down": LAYERS * 1024 * 3456, "head": 152576 * 1152}
+
+
+def phase_k5(dev, gen, w, parent=None):
     """K5 at full width (28 layers, GQA 16/8, head-major bf16 caches): S =
     768 (the 256-token bucket + 512 new tokens) with every cached slot but
     the last visible, and S = 1024 with valid_from = 56 (a left-padded
@@ -428,9 +450,19 @@ def phase_k5(dev, gen, w):
     with the visible slots). K5's stage timer splits each launch into its
     stages (qkv, attention, o, gate_up, down, each with its grid barrier,
     and the head), the median of 5 timed launches. The bound counts the
-    visible slots' cache bytes: the kernel reads no masked tile."""
+    visible slots' cache bytes: the kernel reads no masked tile. With
+    ``parent`` (another checkout's ``ops.quant_matmul``, see
+    :func:`load_parent`) its K5 runs on the same inputs in turns with this
+    one (parent, this, this, parent) and its stage timer beside this one's.
+    Returns the kernels-line row and each GEMV stage's (and the head's)
+    GB/s at S = 768 with one visible slot."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
-    row, worst, times = {}, 0.0, {}
+    row, worst, times, gbps = {}, 0.0, {}, {}
+
+    def stage_ms(mod, args):
+        runs = [mod.q8_decode_all_stage_ms(*args)[0] for _ in range(5)]
+        return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
     for s_len, vf, slot in ((768, 0, 767), (1024, 56, 1000), (768, 766, 767),
                             (1024, 999, 1000)):
         args = mega_inputs(dev, gen, w, s_len, vf, slot)
@@ -444,10 +476,22 @@ def phase_k5(dev, gen, w):
             raise RuntimeError(f"K5 S={s_len}: logits cosine {cos:.6f} <= "
                                f"{K5_COS}")
         worst = max([worst] + [e for e, _ in errs])
-        ms = time_ms(lambda: qm.q8_decode_all_fused(*args), iters=10)
+        visible = slot - vf
+        if parent is None:
+            ms = time_ms(lambda: qm.q8_decode_all_fused(*args), iters=10)
+        else:
+            turns = [time_ms(lambda m=m: m.q8_decode_all_fused(*args),
+                             iters=10) for m in (parent, qm, qm, parent)]
+            ms = float(np.median(turns[1:3]))
+            old = parent.q8_decode_all_fused(*args)
+            log(f"[3] K5 S={s_len} {visible} visible slots, in turns "
+                f"parent / this / this / parent: "
+                + " / ".join(f"{t:.4f}" for t in turns) + " ms; parent's "
+                f"logits rel err {_rel(old[0], ref[0]):.2e} cosine "
+                f"{_cos(old[0], ref[0]):.7f} against the plain version")
+            del old
         pms = time_ms(lambda: qm.q8_decode_all_fused_plain(*args), iters=5,
                       warmup=1)
-        visible = slot - vf
         times[(s_len, visible)] = ms
         ws = [w[k] for k in ("qkv", "o", "gu", "dn", "head")]
         n_bytes = (nbytes(*(a for q in ws for a in q), *args[:9])
@@ -463,12 +507,16 @@ def phase_k5(dev, gen, w):
             f"{n_bytes / 1e6:.2f} MB)")
         if (s_len, visible) == (768, 767):
             row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
-        runs = [qm.q8_decode_all_stage_ms(*args)[0] for _ in range(5)]
-        stages = {k: float(np.median([r[k] for r in runs]))
-                  for k in runs[0]}
+        stages = stage_ms(qm, args)
         log(f"[3] K5 stages S={s_len} {visible} visible slots (ms over 28 "
             f"layers, each to its grid barrier): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in stages.items()))
+        if parent is not None:
+            log(f"[3] K5 parent stages S={s_len} {visible} visible slots: "
+                + ", ".join(f"{k} {v:.4f}"
+                            for k, v in stage_ms(parent, args).items()))
+        if (s_len, visible) == (768, 1):
+            gbps = {k: n / stages[k] / 1e6 for k, n in K5_STAGE_BYTES.items()}
         del args, got, ref
     for s_len, visible in ((768, 767), (1024, 944)):
         one = times[(s_len, 1)]
@@ -476,7 +524,24 @@ def phase_k5(dev, gen, w):
             f"{times[(s_len, visible)]:.4f} ms - 1 visible slot {one:.4f} ms "
             f"= {times[(s_len, visible)] - one:.4f} ms")
     row["max_abs_err"] = worst
-    return row
+    return row, gbps
+
+
+def load_parent(root):
+    """``ops.quant_matmul`` of the port in another checkout (``root``, e.g.
+    the parent commit unpacked with ``git archive``), imported as package
+    ``parent_port`` with its own kernel build, so that its K5 runs in the
+    same process as this one's (its kernels build at its first call)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "fun_asr_gguf_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_port.ops.quant_matmul")
 
 
 def phase_k6(dev, gen, w):
@@ -675,7 +740,7 @@ def phase_probes(dev):
     barrier-only launch at K4's and K5's grids, P1's 28 K4 launches, the
     split of a layer's time, P3, P4, and P0's real fused and all-layers
     steps in ms/token); their rows for the kernels line (on no path: 0
-    launches)."""
+    launches), and P5(a)'s and P5(b)'s GB/s."""
     from fun_asr_gguf_tpu_torch.probes import q8_bw_probe as p5
     from fun_asr_gguf_tpu_torch.probes import q8_mega_probes as p12
     from fun_asr_gguf_tpu_torch.probes import q8_probe as p0
@@ -697,8 +762,9 @@ def phase_probes(dev):
     us = sp["us_per_layer"]
     log(f"[3] P0-P2 per layer: P1 (28 K4a launches) {us['p1']:.2f} us, "
         f"P2 (one launch) {us['p2']:.2f} us, barriers "
-        f"{sp['barrier_us']:.2f} us (K5's grid and 140 barriers: "
-        f"{res['p2_barrier_only_k5']['ms']:.4f} ms a step), stream at "
+        f"{sp['barrier_us']:.2f} us (K5's grid of {p0.k5_grid()} blocks "
+        f"and 140 barriers: {res['p2_barrier_only_k5']['ms']:.4f} ms a "
+        f"step), stream at "
         f"P5(a) {sp['stream_us']:.2f} us; P0 fused "
         f"{res['p0']['fused_ms']:.3f} ms/token, all-layers "
         f"{res['p0']['mega_ms']:.3f} ms/token")
@@ -714,7 +780,7 @@ def phase_probes(dev):
     log(f"[3] P5a achievable stream rate {res['a']['gbps']:.1f} GB/s "
         f"({100 * res['a']['gbps'] * 1e9 / HBM_BYTES_PER_S:.1f} % of the "
         f"3.35 TB/s data sheet peak)")
-    return rows
+    return rows, {way: res[way]["gbps"] for way in ("a", "b")}
 
 
 def probe_row(r, kind):
@@ -780,12 +846,20 @@ PROBES = [
 ]
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the repo (e.g. the parent "
+                    "commit from git archive): its K5 is timed in turns "
+                    "with this one's in phase 3")
+    opts = ap.parse_args()
     t0 = time.perf_counter()
     kind = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    rows = phase_kernels(dev)
-    launches = phase_e2e(dev)
+    parent = load_parent(opts.parent) if opts.parent else None
+    rows = phase_kernels(dev, parent)
+    launches = phase_e2e(dev, parent)
     log(f"[5] wall time {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -799,6 +873,11 @@ def main():
 # bf16 activations through 70 + 28 layers vs f32 on CPU: measured min
 # cosine 0.999854 on an H100 80GB HBM3 (700 W); the limit allows ~7x that gap
 REF_COS = 0.999
+
+
+def _rel(got, ref):
+    got, ref = got.float(), ref.float()
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-6)
 
 
 def _cos(a, b):
@@ -1075,7 +1154,7 @@ ENGINES = [
 ]
 
 
-def phase_e2e(dev):
+def phase_e2e(dev, parent=None):
     from fun_asr_gguf_tpu_torch import create_asr_engine
     from fun_asr_gguf_tpu_torch.models.qwen3 import (
         fuse_qwen3_params_q8_mega, fuse_qwen3_params_q8i, pack_qwen3_params)
@@ -1129,7 +1208,7 @@ def phase_e2e(dev):
             for name, _, _, want, env in ENGINES:
                 with env_vars(env):
                     step_launches(engines[name], name, mods, want)
-            decode_step_ms(engines)
+            decode_step_ms(engines, parent)
         finally:
             for eng in engines.values():
                 eng.cleanup()
@@ -1235,11 +1314,13 @@ def step_launches(engine, name, mods, want):
                            "not run its path's kernels")
 
 
-def decode_step_ms(engines, steps=64):
+def decode_step_ms(engines, parent=None, steps=64):
     """ms per decode step (64-step greedy chunk) of every engine (the
     fused-head engine under its knob, the all-layers engine on its own
     params) and of the q8_0 weights unfused, in turns and back; ms per
-    verify round (spec_k = 8, empty draft) of every speculative engine."""
+    verify round (spec_k = 8, empty draft) of every speculative engine;
+    the host's enqueue of the all-layers step, with ``parent`` also the
+    parent checkout's step on the same params, in turns."""
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
     q8 = engines["q8_0"].models
     envs = {name: env for name, _, _, _, env in ENGINES}
@@ -1290,6 +1371,54 @@ def decode_step_ms(engines, steps=64):
                     for n, v in res.items())
         + "; verify round (9 rows, T=0, empty draft), ms/round: "
         + ", ".join(f"{n} {v:.3f}" for n, v in verify.items()))
+    from fun_asr_gguf_tpu_torch.models import qwen3
+    turns = [("this", qwen3)]
+    if parent is not None:
+        import importlib
+        pq = importlib.import_module(
+            parent.__package__.rsplit(".", 1)[0] + ".models.qwen3")
+        turns = [("parent", pq), ("this", qwen3), ("this", qwen3),
+                 ("parent", pq)]
+    res = [(name, *mega_enqueue_ms(engines[MEGA].models,
+                                   mod.qwen3_decode_step))
+           for name, mod in turns]
+    log(f"[4] {MEGA} decode step alone (qwen3_decode_step: K5 and the calls "
+        f"around it, no sampling), 32 steps, in turns "
+        f"{' / '.join(n for n, _, _ in res)}: the host's enqueue "
+        + " / ".join(f"{e:.4f}" for _, e, _ in res)
+        + " ms/step with no synchronize; "
+        + " / ".join(f"{w:.4f}" for _, _, w in res)
+        + " ms/step to the synchronize")
+
+
+def mega_enqueue_ms(m, decode_step, steps=32):
+    """The host's enqueue of the mega route's decode step: a host clock
+    around ``steps`` calls of ``decode_step`` (``qwen3_decode_step`` of
+    this port or of the ``--parent`` checkout) with no synchronize (the
+    card runs behind), and the same calls' time to the synchronize that
+    follows them. Returns both in ms per step."""
+    from fun_asr_gguf_tpu_torch.models.qwen3 import embed_tokens
+    state = m.prefill(np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32),
+                      rng_seed=0)
+    params, cfg = m.llm_params, m.hybrid_cfg.llm
+    emb = embed_tokens(params, torch.zeros(1, dtype=torch.int64,
+                                           device=m.device))
+
+    def step(i):
+        decode_step(params, state.kv, emb, state.prompt_slots + i,
+                    state.prompt_len + i, state.valid_from, cfg)
+
+    with torch.inference_mode():
+        for i in range(4):
+            step(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / steps, (t2 - t0) * 1e3 / steps
 
 
 if __name__ == "__main__":

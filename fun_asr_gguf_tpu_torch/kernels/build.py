@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
-    "q8_decode_all": [_P] * 32 + [_I] * 7 + [_F, _F, _P],
+    "q8_decode_all": [_P] * 33 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8i_layer_fused": [_P] * 17 + [_I] * 5 + [_F, _P],
     "flash_decode_bf16": [_P] * 7 + [_I] * 7 + [_P],
@@ -50,7 +50,7 @@ SIGNATURES = {
     "q8_stream_gemv": [_P] * 10 + [_I] * 10 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused_grid": [_I, _I, _P],
-    "q8_decode_all_grid": [_I, _P],
+    "q8_decode_all_grid": [_I] * 6 + [_P],
     "q8_probe_p2": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "probe_reshape": [_P] * 2 + [_I] * 4 + [_P],
     "probe_scale_expand": [_P] * 3 + [_I] * 4 + [_P],

@@ -392,6 +392,87 @@ def q8_decode_all_fused(x0, nhb0, post_lns, norms_next, q_norms, k_norms,
 
 MEGA_HEAD_DIM = 128           # K5: 32 lanes x 4 columns per head
 MEGA_STAGES = ("qkv", "attention", "o", "gate_up", "down")   # per layer
+MEGA_MATS = ("qkv", "o", "gate_up", "down", "head")  # K5's split table rows
+MEGA_UNIT_COLS = 512          # K5: columns of a slab's unit (q8_stream.cuh)
+MEGA_HEAD_TILE_ROWS = 16      # K5: rows of a tile of the head's ring
+MEGA_WIDTH_MULTIPLE = 128     # K5: h, qd, f (whole 16-byte scale words)
+
+
+class MegaSplit(NamedTuple):
+    """K5's work split over a grid of ``blocks`` blocks: the table the
+    kernel reads (``split`` in ``csrc/q8_decode_all.cu``) and the shared
+    memory it implies."""
+    starts: torch.Tensor  # int32 [5, blocks + 1]: block b's slab of
+                          # MEGA_MATS[m] is rows [starts[m, b],
+                          # starts[m, b + 1]) (gate_up: gate/up row pairs)
+    widths: tuple         # k of each of MEGA_MATS
+    slot0: int            # bytes of the ring's slot 0 (qkv, gate_up slabs)
+    slot1: int            # bytes of slot 1 (o, down slabs)
+    red: int              # floats of one stage's unit sums (slab or tile)
+    head_rows: int        # rows of a head tile
+
+    @property
+    def blocks(self) -> int:
+        return self.starts.shape[1] - 1
+
+
+def mega_slab_bytes(rows: int, k: int) -> int:
+    """Bytes of a K5 slab of ``rows`` q8_0 rows of width k as its ring
+    holds it: the int8 rows, then their f32 scales."""
+    return rows * (k + k // 8)
+
+
+def q8_decode_all_split(h: int, qd: int, ffn: int, kh: int, vp: int,
+                        blocks: int) -> MegaSplit:
+    """K5's split of each layer matrix and the head over ``blocks``
+    blocks: contiguous ranges of whole rows, gate row j with up row j
+    (gate_up is split in pairs). Every row of a matrix has the same bytes,
+    so an even split of rows (counts differ by at most one) is an even
+    split of bytes. A pure function of the widths and the grid; the
+    kernel's ring slots are sized to the largest slab they hold."""
+    nq = qd + 2 * kh * MEGA_HEAD_DIM
+    rows = (nq, h, ffn, h, vp)
+    widths = (h, qd, h, ffn, h)
+    b = torch.arange(blocks + 1, dtype=torch.int64)
+    starts = torch.stack([b * n // blocks for n in rows]).to(torch.int32)
+    most = (starts[:, 1:] - starts[:, :-1]).amax(1).tolist()
+    slab_rows = [most[0], most[1], 2 * most[2], most[3]]
+    size = [mega_slab_bytes(r, k) for r, k in zip(slab_rows, widths)]
+    units = [r * -(-k // MEGA_UNIT_COLS) for r, k in zip(
+        slab_rows + [MEGA_HEAD_TILE_ROWS], widths)]
+    return MegaSplit(starts, widths, max(size[0], size[2]),
+                     max(size[1], size[3]), max(units), MEGA_HEAD_TILE_ROWS)
+
+
+_mega_plans = {}
+
+
+def _mega_plan(dev, h, qd, ffn, kh, vp):
+    """K5's split on the card's co-resident grid (two blocks an SM where
+    the shared memory allows it, else one) and its table on the card,
+    cached per (device, widths)."""
+    from ..kernels import build
+    key = (dev.index, h, qd, ffn, kh, vp)
+    plan = _mega_plans.get(key)
+    if plan is None:
+        sms = build.sm_count(dev)
+        for per_sm in (2, 1):
+            split = q8_decode_all_split(h, qd, ffn, kh, vp, per_sm * sms)
+            most = build.grid_blocks("q8_decode_all_grid", h, qd, ffn,
+                                     split.slot0, split.slot1, split.red)
+            if most >= split.blocks:
+                break
+        else:
+            raise RuntimeError(f"q8_decode_all: no co-resident grid of one "
+                               f"block an SM at h={h}, qd={qd}, f={ffn}")
+        plan = _mega_plans[key] = (split, split.starts.to(dev))
+    return plan
+
+
+def q8_decode_all_grid(h: int, qd: int, ffn: int, kh: int, vp: int) -> int:
+    """K5's grid (blocks) at these widths on the current card."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return _mega_plan(dev, h, qd, ffn, kh, vp)[0].blocks
 
 
 def q8_decode_all_stage_ms(*args):
@@ -442,6 +523,10 @@ def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
         raise ValueError(f"q8_decode_all takes head_dim {MEGA_HEAD_DIM} and "
                          f"a GQA group of 2, got head_dim {hd}, "
                          f"{qd // hd} query heads over {kh} kv heads")
+    if h % MEGA_WIDTH_MULTIPLE or ffn % MEGA_WIDTH_MULTIPLE:
+        raise ValueError(f"q8_decode_all streams rows whose f32 scales are "
+                         f"whole 16-byte words: h and f must be multiples "
+                         f"of {MEGA_WIDTH_MULTIPLE}, got h={h}, f={ffn}")
     weights = [(qkv_w, (n_layers, nq, h)), (o_w, (n_layers, h, qd)),
                (gu_w, (n_layers, 2 * ffn, h)), (down_w, (n_layers, h, ffn)),
                (head_w, (vp, h))]
@@ -495,6 +580,7 @@ def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
     # the kernel picks at most one chunk per 32 slots)
     att = torch.empty(kh * -(-s_len // 32) * 2 * (hd + 2),
                       dtype=torch.float32, device=dev)
+    split, starts = _mega_plan(dev, h, qd, ffn, kh, vp)
     code = build.lib().q8_decode_all(
         *(build.ptr(t) for t in (x0, nhb0, post_lns, norms_next, q_norms,
                                  k_norms, cos, sin, bias_row, kv_k, kv_v)),
@@ -502,8 +588,9 @@ def _launch_mega(x0, nhb0, post_lns, norms_next, q_norms, k_norms, cos, sin,
         qkv_s, xm_s, res_s, h1_s, act_s, build.ptr(logits),
         build.ptr(kv_new[0]), build.ptr(kv_new[1]), build.ptr(att),
         build.ptr(build.tickets(dev, kh)),
-        None if stamps is None else build.ptr(stamps),
+        None if stamps is None else build.ptr(stamps), build.ptr(starts),
         n_layers, h, qd, ffn, kh, s_len, vp, float(eps), float(hd ** -0.5),
+        split.blocks, split.slot0, split.slot1, split.red, split.head_rows,
         build.stream_ptr(dev))
     build.check(code, "q8_decode_all")
     mega_launches += 1

@@ -40,13 +40,15 @@ import numpy as np
 import torch
 
 from ..ops.quant_matmul import (Q8Weight, _rms_f32, dequantize, layer,
-                                q8_mlp_qkv_fused, q8_mlp_qkv_fused_plain)
+                                q8_decode_all_grid, q8_mlp_qkv_fused,
+                                q8_mlp_qkv_fused_plain)
 from . import SLEEP_CYCLES, check_cuda, launch, nbytes, rel_err, time_ms
 from . import q8_bw_probe as p5
 from .q8_mega_probes import BLOCK, expand_scales, expand_scales_plain
 
 LAYERS = 28
 QD, H, FFN, NQ = 2048, 1024, 3072, 4096
+KV_HEADS, VOCAB_PAD = 8, 152576
 EPS = 1e-6
 P2_BARRIERS_PER_LAYER = 3     # K4's: o | gate_up | down | qkv
 K5_BARRIERS_PER_LAYER = 5     # q8_decode_all.cu: qkv | attention | o |
@@ -146,9 +148,10 @@ def k4_grid(h=H):
 
 
 def k5_grid(h=H):
-    """K5's co-resident grid (``q8_decode_all_grid``)."""
-    from ..kernels import build
-    return build.grid_blocks("q8_decode_all_grid", h)
+    """K5's grid at width h, Qwen3-0.6B's other widths
+    (``ops.quant_matmul.q8_decode_all_grid``: the blocks its split is
+    sized for)."""
+    return q8_decode_all_grid(h, QD, FFN, KV_HEADS, VOCAB_PAD)
 
 
 def _launch_p2(xm, res, pw, nw, ws, eps, barriers, blocks, bufs):

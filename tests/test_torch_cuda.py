@@ -377,8 +377,10 @@ def test_q8_layer_head_fused_kernel_matches_plain(dev, m, monkeypatch):
 
 
 def _mega(dev, seed, s_len=256, kh=2, q_heads=4, layers=2, h=256, ffn=512,
-          vp=2048, b=1, cache_dtype=torch.bfloat16, visible=(0, None)):
-    """K5's inputs at small widths; cached slots [visible) are unmasked."""
+          vp=2048, b=1, cache_dtype=torch.bfloat16, visible=(0, None),
+          d_range=(1e-3, 3e-3)):
+    """K5's inputs at small widths; cached slots [visible) are unmasked;
+    q8_0 scales uniform in ``d_range``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bf, hd = torch.bfloat16, 128
     qd = q_heads * hd
@@ -388,7 +390,8 @@ def _mega(dev, seed, s_len=256, kh=2, q_heads=4, layers=2, h=256, ffn=512,
             torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8),
             (torch.rand(*shape[:-1], shape[-1] // 32, generator=g,
-                        device=dev) * 2e-3 + 1e-3).half().float())
+                        device=dev) * (d_range[1] - d_range[0])
+             + d_range[0]).half().float())
 
     def norm(*shape):
         return (1 + 0.1 * torch.randn(*shape, generator=g, device=dev)).to(bf)
@@ -476,6 +479,67 @@ def test_q8_decode_all_stage_timer_leaves_the_step_unchanged(dev):
     assert 0 < stages["span"] < host_ms
 
 
+# Qwen3-0.6B at full width: 28 layers, 16 query over 8 kv heads, q8_0
+# scales of a trained 0.6B checkpoint's magnitude (|w| <= 0.045, as
+# chip_smoke.py's random weights)
+QWEN3_MEGA = dict(kh=8, q_heads=16, layers=28, h=1024, ffn=3072, vp=152576,
+                  d_range=(2e-4, 3.5e-4))
+K5_COS_QWEN3 = 0.9995   # chip_smoke.py's K5_COS: 28 layers of those flips
+
+
+@pytest.mark.parametrize("s_len", [768, 1024, 2313])
+@pytest.mark.parametrize("span", ["one", "part", "all"])
+def test_q8_decode_all_kernel_matches_plain_at_qwen3_width(dev, s_len, span):
+    """The streamed GEMV stages and head on 264 (or 132) blocks at full
+    width, with one visible cached slot, part of the cache, and all of it
+    but the step's own slot."""
+    last = s_len - 1
+    visible = dict(one=(last - 1, last), part=(56, s_len // 2),
+                   all=(0, last))[span]
+    args = _mega(dev, seed=s_len + len(span), s_len=s_len, visible=visible,
+                 **QWEN3_MEGA)
+    before = tqm.mega_launches
+    logits, k_new, v_new = tqm.q8_decode_all_fused(*args)
+    torch.cuda.synchronize()
+    assert tqm.mega_launches == before + 1
+    ref = tqm.q8_decode_all_fused_plain(*args)
+    assert logits.shape == (1, 152576) and k_new.shape == (28, 8, 128)
+    assert torch.isfinite(logits).all()
+    assert _rel_err(logits, ref[0]) < K5_TOL
+    assert _cos_sim(logits, ref[0]) > K5_COS_QWEN3
+    assert _rel_err(k_new, ref[1]) < K5_TOL
+    assert _rel_err(v_new, ref[2]) < K5_TOL
+
+
+@pytest.mark.parametrize("width", ["small", "qwen3"])
+def test_q8_decode_all_kernel_repeats_and_leaves_tickets_zero(dev, width):
+    """Calls on the same inputs give equal outputs bit for bit (each row's
+    units are summed in order, whatever order the blocks run in), and
+    each call leaves the attention items' tickets at zero."""
+    from fun_asr_gguf_tpu_torch.kernels import build
+    kw = QWEN3_MEGA if width == "qwen3" else {}
+    args = _mega(dev, seed=11, s_len=1024, visible=(40, 700), **kw)
+    first = tqm.q8_decode_all_fused(*args)
+    for _ in range(3):
+        again = tqm.q8_decode_all_fused(*args)
+        torch.cuda.synchronize()
+        assert not build.tickets(dev, args[9].shape[1]).any()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_q8_decode_all_split_fits_the_cards_grid(dev):
+    """The wrapper's split is sized for the grid the card makes
+    co-resident: two blocks an SM at Qwen3-0.6B's widths."""
+    from fun_asr_gguf_tpu_torch.kernels import build
+    sms = build.sm_count(dev)
+    w = dict(h=1024, qd=2048, ffn=3072, kh=8, vp=152576)
+    assert tqm.q8_decode_all_grid(**w) == 2 * sms
+    split = tqm.q8_decode_all_split(**w, blocks=2 * sms)
+    assert build.grid_blocks("q8_decode_all_grid", 1024, 2048, 3072,
+                             split.slot0, split.slot1, split.red) >= 2 * sms
+
+
 def test_q8_decode_all_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                       # b = 2
         tqm.q8_decode_all_fused(*_mega(dev, seed=1, b=2))
@@ -484,6 +548,8 @@ def test_q8_decode_all_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):                        # f32 cache
         tqm.q8_decode_all_fused(*_mega(dev, seed=1,
                                        cache_dtype=torch.float32))
+    with pytest.raises(ValueError):                       # f % 128 != 0
+        tqm.q8_decode_all_fused(*_mega(dev, seed=1, ffn=480))
 
 
 def _q8dot(dev, n, k, seed, layers=None):
