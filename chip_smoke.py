@@ -19,7 +19,8 @@ Phases, one line each (any failure raises and exits non-zero):
    28-layer caches, up to S = 2313, K3, K4 (the fused layer chain, with and without the next-layer
    qkv stage) and K4c (the last layer's chain with the final norm and the
    152576-row head, timed beside the K4b + K1 head calls it replaces) at
-   m = 1 and m = 9 on layer views of stacked [28, n, k] weights, K5
+   m = 1 and m = 9 on layer views of stacked [28, n, k] weights, split
+   by stage with K4's stage timer (K4a at m = 1 and 9, K4c at m = 1), K5
    (the whole decode step in one launch) at full width on 28-layer
    head-major caches of S = 768 and 1024, with every slot visible and
    with one (the attention's share is the difference), split by stage
@@ -67,9 +68,9 @@ JAX.
     python3 chip_smoke.py --parent DIR   # DIR: another checkout (e.g.
                                          # the parent commit)
 
-also times that checkout's K5 in turns with this one's (phase 3), on the
-same inputs in the same process, and its all-layers decode step on this
-one's engine (phase 4).
+also times that checkout's K4a, K4b, K4c (m = 1 and 9) and K5 in turns
+with this one's (phase 3), on the same inputs in the same process, and
+its all-layers decode step on this one's engine (phase 4).
 """
 
 import contextlib
@@ -215,8 +216,8 @@ def phase_kernels(dev, parent=None):
 
     rows.update(phase_k2(dev, gen))
     w = stacked_weights(dev, gen)
-    rows["q8_layer_fused"] = phase_k4(dev, gen, w)
-    rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w)
+    rows["q8_layer_fused"] = phase_k4(dev, gen, w, parent)
+    rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w, parent)
     rows["q8_decode_all"], k5_gbps = phase_k5(dev, gen, w, parent)
     rows["q8dot_matmul"] = phase_k6(dev, gen, w)
     rows["q8i_layer_fused"] = phase_k7(dev, gen, w)
@@ -276,10 +277,36 @@ def stacked_weights(dev, gen):
                                              device=dev)).to(torch.bfloat16))
 
 
-def phase_k4(dev, gen, w):
+def in_turns(name, run, parent_run):
+    """``run``'s ms; with ``parent_run`` (the --parent checkout's same
+    call) timed in turns, parent / this / this / parent, logged, and the
+    median of this one's two turns returned."""
+    if parent_run is None:
+        return time_ms(run)
+    turns = [time_ms(f) for f in (parent_run, run, run, parent_run)]
+    log(f"[3] {name} in turns parent / this / this / parent: "
+        + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+    return float(np.median(turns[1:3]))
+
+
+def k4_stages(name, runs):
+    """K4's stage timer (``ops.quant_matmul.q8_layer_fused_stage_ms``):
+    the median over ``runs`` (one call each, cycling the layers) of each
+    stage's ms, each to its grid barrier, logged."""
+    got = [run()[0] for run in runs]
+    med = {k: float(np.median([g[k] for g in got])) for k in got[0]}
+    log(f"[3] {name} stages (ms, each to its grid barrier, median of "
+        f"{len(runs)}): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    return med
+
+
+def phase_k4(dev, gen, w, parent=None):
     """K4 at full width on layer views of stacked [28, n, k] weights: the
     next-layer-qkv form (layers 0..26) and the last-layer form, at m = 1
-    (decode) and m = 9 (verify). Timed calls cycle the layers."""
+    (decode) and m = 9 (verify). Timed calls cycle the layers; with
+    ``parent`` (another checkout's ``ops.quant_matmul``) its K4 is timed
+    on the same inputs in turns with this one. K4a's stage timer splits
+    its launch at m = 1 and m = 9."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
     bf = torch.bfloat16
     o, gu, dn, qkv, norms = w["o"], w["gu"], w["dn"], w["qkv"], w["norms"]
@@ -312,8 +339,16 @@ def phase_k4(dev, gen, w):
             err = max(e for e, _ in errs)
             rel = max(r for _, r in errs)
             worst = max(worst, err)
-            ms = time_ms(lambda: call(kern, xm, res, with_qkv))
+            pk = None if parent is None else getattr(parent, kern.__name__)
+            ms = in_turns(f"{name} m={m}",
+                          lambda: call(kern, xm, res, with_qkv),
+                          pk and (lambda: call(pk, xm, res, with_qkv)))
             pms = time_ms(lambda: call(plain, xm, res, with_qkv))
+            if with_qkv:
+                k4_stages(f"K4a q8_mlp_qkv_fused m={m}", [
+                    lambda l=l: qm.q8_layer_fused_stage_ms(
+                        xm, res, *args(l, True), 1e-6)
+                    for l in range(0, LAYERS, 4)])
             ws = args(0, with_qkv)[1 + with_qkv:]
             b = bound(nbytes(xm, res, *norms[0, :1 + with_qkv],
                              *(a for w in ws for a in w))
@@ -348,11 +383,13 @@ def env_vars(values):
 FUSED_HEAD = {"FUNASR_Q8_FUSED_HEAD": "1"}
 
 
-def phase_k4c(dev, gen, w):
+def phase_k4c(dev, gen, w, parent=None):
     """K4c (the last layer's chain + final norm + the 152576-row head) at
     m = 1 (decode) and m = 9 (verify) on layer views of the stacked
     weights, beside the calls it replaces: K4b, the final RMSNorm and the
-    K1 head, as the decoder runs them with the knob off."""
+    K1 head, as the decoder runs them with the knob off; with ``parent``
+    its K4c in turns with this one. K4c's stage timer splits its launch at
+    m = 1."""
     from fun_asr_gguf_tpu_torch.models.common import rms_norm
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
     bf = torch.bfloat16
@@ -389,9 +426,18 @@ def phase_k4c(dev, gen, w):
             err = max(e for e, _ in errs)
             rel = max(r for _, r in errs)
             worst = max(worst, err)
-            ms = time_ms(lambda: fused(qm.q8_layer_head_fused, xm, res))
+            pk = None if parent is None else parent.q8_layer_head_fused
+            ms = in_turns(f"K4c q8_layer_head_fused m={m}",
+                          lambda: fused(qm.q8_layer_head_fused, xm, res),
+                          pk and (lambda: fused(pk, xm, res)))
             pms = time_ms(lambda: fused(qm.q8_layer_head_fused_plain, xm,
                                         res))
+            if m == 1:
+                k4_stages("K4c q8_layer_head_fused m=1", [
+                    lambda: qm.q8_layer_fused_stage_ms(
+                        xm, res, layer_w(True)[0], final,
+                        *layer_w(False)[1:], head, 1e-6, head=True)
+                    for _ in range(7)])
             rms = time_ms(lambda: replaced(xm, res))
             ws = layer_w(False)[1:] + [head]
             b = bound(nbytes(xm, res, norms[0, 0], final,

@@ -1,4 +1,5 @@
-// K4 — fused per-layer q8_0 chain for Hopper (sm_90a), one cooperative launch.
+// K4 — fused per-layer q8_0 chain for Hopper (sm_90a), one cooperative
+// launch on the streaming weight engine (q8_stream.cuh).
 //
 //   h1  = xm . o^T + resid                                   (f32)
 //   nh  = bf16(rmsnorm(h1) * post_w)
@@ -7,41 +8,84 @@
 //   qkv = bf16(rmsnorm(out) * next_w) . next_qkv^T           (f32, optional)
 //
 // Replaces the Pallas kernels fun_asr_gguf_tpu/ops/quant_matmul.py
-// q8_mlp_qkv_fused (:832; grid=(1,) body _q8_mlp_qkv_fused_body :770, staged
-// form _q8_mega_staged_call :1183) and q8_mlp_fused (:649, the same chain
-// without the next-layer stage), and — with the final norm in next_w and
-// the 152576-row q8_0 lm_head in the qkv slot, so that qkv is the logits —
-// q8_layer_head_fused (:953, K4c). Numerics follow the JAX reference path
-// (_q8_mlp_fused_ref :623, _q8_mlp_qkv_fused_ref :814): every q*d is formed
-// in f32 and rounded to bf16 once (the Pallas bodies' bf16 rounding of d is
-// not copied); activations entering a product are bf16; sums accumulate in
-// f32; both RMSNorms (mean over the whole row) and both residual adds are
-// in f32. Weights stay in natural GGUF order: the TPU's perm space does not
-// exist here.
+// q8_mlp_qkv_fused (:832, K4a; grid=(1,) body _q8_mlp_qkv_fused_body :770)
+// and q8_mlp_fused (:649, K4b: the same chain without the next-layer
+// stage), both through the staged form _q8_mega_staged_call (:1183), and —
+// with the final norm in next_w and the 152576-row q8_0 lm_head in the qkv
+// slot, so that qkv is the logits — q8_layer_head_fused (:953, K4c).
+// Numerics follow the JAX reference path (_q8_mlp_fused_ref :623,
+// _q8_mlp_qkv_fused_ref :814): every q*d is formed in f32 and rounded to
+// bf16 once (the Pallas bodies' bf16 rounding of d is not copied);
+// activations entering a product are bf16; products and sums in f32; both
+// RMSNorms (mean over the whole row) and both residual adds in f32.
+// Weights stay in natural GGUF order: the TPU's perm space does not exist
+// here.
 //
-// What bounds it: bytes. One call at Qwen3-0.6B width reads 15.73 MB of
+// What bounds it: bytes. A K4a call at Qwen3-0.6B width reads 15.73 MB of
 // int8 plus 1.97 MB of f32 scales (o 1024x2048, gate_up 6144x1024, down
-// 1024x3072, next qkv 4096x1024); at m <= 16 activation rows the chain is
-// four GEMVs, whose floor is 5.3 us at the H100's 3.35 TB/s. As K4c the
-// last stage streams the head instead (152576x1024 int8 + f32 scales,
-// 175.77 MB): 11.54 + 1.44 MB of layer weights plus the head, a 0.056 ms
-// floor at m = 1. Every row offset is taken in size_t, so the head's
-// 156 M-element rows and the [m, 152576] logits index without overflow.
+// 1024x3072, next qkv 4096x1024): 17.69 MB, a 5.3 us floor at the H100's
+// 3.35 TB/s, at m = 1 (decode) and m = 9 (a verify round) alike. As K4c
+// the last stage streams the head (152576x1024 int8 + f32 scales, 175.77
+// MB): 189.3 MB, a 0.0565 ms floor. Row offsets are size_t, so the head's
+// rows and the [m, 152576] logits index without overflow.
 //
-// Design. Every stage needs the whole previous row (the RMSNorm needs all
-// 1024 outputs of o, down needs all 3072 gated values), and blocks run in
-// parallel in no order, so the chain is ONE cooperative launch sized to
-// co-residency with grid-wide barriers between the stages:
-//   o + residual | norm + gate_up + gate | down + residual | norm + next qkv
-// Row intermediates live in scratch the wrapper allocates (h1 [m, h] f32,
-// act [m, f] bf16). After a barrier every block recomputes the 1024-wide
-// RMSNorm of the f32 row into its own shared memory: cheaper than another
-// barrier. The GEMV is K1's: one warp per output row for all m activation
-// rows, 16-byte int8 loads (half a q8_0 block, one scale each); the warp
-// that takes gate row j also takes up row j + f, so silu(g) * u is formed
-// in registers. Data written inside the launch is read with ld.global.cg
-// (L2), never through the read-only path. The GEMV, the row RMSNorm and
-// the loads live in q8_gemv.cuh, shared with K5 (q8_decode_all.cu).
+// Design. Every stage needs the whole previous row (an RMSNorm needs all
+// 1024 outputs of o, down all gated values), so the chain is one
+// cooperative launch with a grid barrier between stages:
+//   o + residual | norm + gate_up + gate | down + residual | norm + qkv/head
+// What the design does about what held the warp-per-row form back:
+// - The weights were read by the warps that computed, so each stage waited
+//   on DRAM latency and nothing of the next stage was in flight across a
+//   barrier (the TPU kernel's sequential grid prefetches the next chunk
+//   across its stages). Here the wrapper splits each matrix into
+//   contiguous ranges of whole rows per block (ops/quant_matmul.py
+//   q8_layer_fused_split: gate row j with up row j; the table and the
+//   shared-memory layout come from the card in `plan`), and thread 0 of
+//   each block requests its slabs by TMA bulk copies (q8s::bulk_load), one
+//   mbarrier each, in the launch's first instructions: o, gate_up and
+//   down always; the qkv slab too where shared memory has room, else into
+//   gate_up's slot just after gate_up's barrier; the head's first ring
+//   tiles likewise. A stage waits only on its own slab.
+//   Where a matrix's width is not a multiple of 128, the scales of a row
+//   range are not whole 16-byte words: the block copies them with plain
+//   loads beside the bulk copy of the int8 rows.
+// - At m = 9 each weight row re-read every activation row through L2. The
+//   activation rows now sit in shared memory (written once per block per
+//   stage; for m > 1 as bf16 rows, in chunks of columns where m rows of
+//   the widest matrix do not fit), and:
+//   * m = 1 (two blocks an SM): K5's unit dot (q8s::slab_dot) on an f32
+//     row: units of (row, 512 columns), so every warp has work on o's and
+//     down's 3-4 rows a block.
+//   * m = 2..16 (one block an SM): mma.sync m16n8k16, bf16 in, f32
+//     accumulate. A is the activation rows (padded to 16 with zeros), B
+//     eight weight rows dequantized in registers. The k order inside a
+//     16-column step is free as long as A and B agree: lane (g, t) takes
+//     columns 16t..16t+15 of a 64-column span of weight row g (16 int8
+//     bytes, one q8_0 scale) and the same columns of activation rows g and
+//     g + 8 (two 16-byte loads each; rows padded by 16 bytes, so the loads
+//     are conflict-free), four steps of 4 columns. So each weight is
+//     dequantized once per block for all m rows. A work item is (a group
+//     of four 8-row tiles, a slice of the spans): each activation fragment
+//     is loaded once for 32 weight rows, and the items are enough for
+//     every warp; the slices' partial tiles meet in shared memory and are
+//     added in slice order.
+//   K4c's head streams through a ring of 32-row tiles from gate_up's slot
+//   (tiles past that slot go out at the start, the rest after gate_up's
+//   barrier; each slot is requested again as soon as its tile is done).
+// - Per-call fixed cost: the requests go out before anything else, so the
+//   first slab is on its way while the launch settles. What remains of
+//   the first stage is mostly the launch's ramp and the first bytes'
+//   latency: requesting only o's slab first, or prefetching the next
+//   layer's o into L2 during the last stage, did not shorten it on the
+//   H100 (PERF.md §6).
+// Every row's sum is taken in a fixed order whatever the blocks' timing,
+// so repeated calls are equal bit for bit. The row norms are computed by
+// every block after the barrier from the f32 rows written in the launch
+// (read via L2, ld.global.cg), instead of another barrier.
+//
+// The stage timer (a non-null `stamps`, a measurement, never on the decode
+// path): block 0's thread 0 writes %globaltimer and clock64 at the start,
+// clock64 after each grid barrier and at the end, %globaltimer at the end.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -51,17 +95,36 @@
 
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
-#include "q8_gemv.cuh"
+#include "q8_stream.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace q8;
+using q8::kThreads;
+using q8::kWarps;
+using namespace q8s;
 
-constexpr int kMaxBlocksPerSm = 2;   // fewer blocks, cheaper grid barriers
+// the split table's rows (row, or gate/up pair, starts per block)
+enum Mat { kO = 0, kGateUp, kDown, kQkv, kMats };
+// the plan's leading ints (ops/quant_matmul.py K4_LAYOUT, in this order):
+// byte offsets of the activation rows, the unit sums, the mbarriers and the
+// slots; gate_up's slot size; the activation chunk's columns
+// and bytes a row; each stage's slices (mma) of spans; the head's tile
+// rows (0: no head), ring depth and one unit-sum buffer's floats
+enum Lay {
+  kX = 0, kRed, kBars, kSlotO, kSlotGateUp, kSlotDown, kSlotQkv,
+  kSizeGateUp, kXcols, kXstride, kSO, kSGateUp, kSDown, kSQkv, kHeadRows,
+  kHeadTiles, kRedFloats, kLayoutLen
+};
+enum Mode { kUnit = 0, kMmaLo, kMmaHi };   // m = 1, 2..8, 9..16
+
+constexpr int kMaxHeadTiles = 16;
+constexpr int kSpan = 64;                 // columns of an mma span
+constexpr int kGroup = 4;                 // 8-row tiles of an mma item
+constexpr int kMaxBlocksPerSm = 2;
 
 struct Args {
   const __nv_bfloat16* xm;      // [m, qd]
@@ -80,131 +143,473 @@ struct Args {
   __nv_bfloat16* act;           // scratch [m, f]
   float* out;                   // [m, h]
   float* qkv;                   // [m, nq]
+  long long* stamps;            // the stage timer [7], or null
+  const int* plan;              // [kLayoutLen + 4 (grid + 1)]
   int m, qd, h, f, nq;
   float eps;
 };
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-q8_layer_fused_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* nh = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [m, h]
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * kWarps;
-  const int m = a.m, h = a.h, f = a.f;
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
 
-  // stage 1: h1 = xm . o^T + resid
-  for (int j = gwarp; j < h; j += nwarps) {
-    const int8_t* const q[1] = {a.oq + static_cast<size_t>(j) * a.qd};
-    const float* const d[1] = {a.od + static_cast<size_t>(j) * (a.qd >> 5)};
-    float acc[1][MT] = {};
-    rows_dot<MT, 1, Src::kReadOnly>(q, d, a.xm, m, a.qd, lane, acc);
+// Block-wide (every thread calls it): rows [r0, r0 + n) of (q, d) of width
+// k into `slot` on `bar`, and with pair > 0 rows [r0 + pair, ...) after
+// them (gate_up's up rows); the slab is int8 rows [R, k] then f32 scales
+// [R, k / 32]. Thread 0 arrives on `bar` expecting the bulk bytes (n = 0
+// arrives on an empty slab, so the phase completes); the fence orders the
+// block's earlier generic reads of the slot before the copies. With k %
+// 128 != 0 the scales go by plain loads: readers see them after the next
+// __syncthreads.
+__device__ void fetch(unsigned char* slot, uint64_t* bar, const int8_t* q,
+                      const float* d, int k, size_t r0, int n, size_t pair) {
+  const int parts = pair > 0 ? 2 : 1;
+  const int R = n * parts;
+  const bool bulk_d = k % 128 == 0;
+  if (threadIdx.x == 0) {
+    const unsigned bytes =
+        bulk_d ? slab_bytes(R, k) : static_cast<unsigned>(R) * k;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+    const unsigned qb = static_cast<unsigned>(n) * k;
+    const unsigned db = static_cast<unsigned>(n) * (k / 8);
+    for (int p = 0; p < parts && n > 0; ++p) {
+      const size_t row = r0 + p * pair;
+      bulk_load(slot + p * qb, q + row * k, qb, bar);
+      if (bulk_d)
+        bulk_load(slot + static_cast<size_t>(R) * k + p * db,
+                  d + row * (k >> 5), db, bar);
+    }
+  }
+  if (!bulk_d && n > 0) {
+    float* ds = reinterpret_cast<float*>(slot + static_cast<size_t>(R) * k);
+    const int nb = k >> 5;
+    for (int i = threadIdx.x; i < R * nb; i += kThreads) {
+      const int row = i / nb, p = row / n;
+      ds[i] = __ldg(d + (r0 + p * pair + (row - p * n)) * nb + (i - row * nb));
+    }
+  }
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// bf16x2 of two bytes of w ^ 0x80808080 (q8s::q8_at), each q*s rounded once
+__device__ __forceinline__ unsigned deq2(unsigned w, unsigned lo,
+                                         unsigned hi, float s) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(q8_at(w, lo) * s, q8_at(w, hi) * s);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The mma form of a slab's dot products over columns [c0, c1) (a chunk of
+// the activation rows X: bf16, `xstride` bytes a row, column c0 first).
+// Work item it = (group it / S of kGroup 8-row tiles, slice it % S of the
+// rows' 64-column spans): each activation fragment is loaded once for the
+// group's tiles. The item writes (add: adds) its partial tiles, [rows][8]
+// each, to red[(it kGroup + tile) kStride]. Lanes past the slab's rows
+// read its last row; their columns of a tile are never read.
+template <bool kHi>
+__device__ void mma_slab(const unsigned char* slot, int R, int k, int S,
+                         int c0, int c1, const unsigned char* X, int xstride,
+                         int m, float* red, bool add) {
+  constexpr int kStride = kHi ? 128 : 64;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (R + 7) / 8;
+  const int items = (tiles + kGroup - 1) / kGroup * S;
+  const int ns = (k + kSpan - 1) / kSpan, nb = k >> 5;
+  const int sp_lo = c0 / kSpan, sp_hi = (c1 + kSpan - 1) / kSpan;
+  const float* d = reinterpret_cast<const float*>(
+      slot + static_cast<size_t>(R) * k);
+  const bool has0 = g < m, has1 = kHi && g + 8 < m;
+  const unsigned char* x0 = X + g * xstride;
+  const unsigned char* x1 = X + (g + 8) * xstride;
+  for (int it = warp; it < items; it += kWarps) {
+    const int grp = it / S, sl = it - grp * S;
+    const int nt = min(kGroup, tiles - grp * kGroup);   // warp-uniform
+    const unsigned char* wq[kGroup];
+    const float* wd[kGroup];
 #pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r < m) {
-        const float v = warp_sum(acc[0][r]);
-        if (lane == 0) {
-          const size_t i = static_cast<size_t>(r) * h + j;
-          a.h1[i] = v + __bfloat162float(a.resid[i]);
+    for (int i = 0; i < kGroup; ++i) {
+      const int j = min((grp * kGroup + i) * 8 + g, R - 1);
+      wq[i] = slot + static_cast<size_t>(j) * k;
+      wd[i] = d + j * nb;
+    }
+    const int a = max(sl * ns / S, sp_lo), b = min((sl + 1) * ns / S, sp_hi);
+    float c[kGroup][4] = {};
+    for (int sp = a; sp < b; ++sp) {
+      const int col = sp * kSpan + 16 * t;
+      const bool in = col < c1;   // k % 32 == 0: 16 columns all in or out
+      uint4 xa = make_uint4(0u, 0u, 0u, 0u);
+      uint4 xb = xa, ya = xa, yb = xa;
+      const int xo = (col - c0) * 2;
+      if (in && has0) {
+        xa = *reinterpret_cast<const uint4*>(x0 + xo);
+        xb = *reinterpret_cast<const uint4*>(x0 + xo + 16);
+      }
+      if (in && has1) {
+        ya = *reinterpret_cast<const uint4*>(x1 + xo);
+        yb = *reinterpret_cast<const uint4*>(x1 + xo + 16);
+      }
+      const unsigned A0[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      const unsigned A1[8] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (i >= nt) break;
+        uint4 qv = make_uint4(0u, 0u, 0u, 0u);
+        float s = 0.f;
+        if (in) {
+          qv = *reinterpret_cast<const uint4*>(wq[i] + col);
+          s = wd[i][col >> 5];
+        }
+        const unsigned w[4] = {qv.x ^ 0x80808080u, qv.y ^ 0x80808080u,
+                               qv.z ^ 0x80808080u, qv.w ^ 0x80808080u};
+#pragma unroll
+        for (int st = 0; st < 4; ++st)   // columns 16t + 4st .. + 3
+          mma16816(c[i], A0[2 * st], A1[2 * st], A0[2 * st + 1],
+                   A1[2 * st + 1], deq2(w[st], 0x7540, 0x7541, s),
+                   deq2(w[st], 0x7542, 0x7543, s));
+      }
+    }
+    // c[i][0], c[i][1]: activation row g, weight rows 2t, 2t + 1 of tile
+    // i; c[i][2], c[i][3]: activation row g + 8
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (i >= nt) break;
+      float* r = red + (it * kGroup + i) * kStride + g * 8 + 2 * t;
+      if (add) {
+        r[0] += c[i][0];
+        r[1] += c[i][1];
+        if (kHi) {
+          r[64] += c[i][2];
+          r[65] += c[i][3];
+        }
+      } else {
+        r[0] = c[i][0];
+        r[1] = c[i][1];
+        if (kHi) {
+          r[64] = c[i][2];
+          r[65] = c[i][3];
         }
       }
     }
   }
-  grid.sync();
-
-  // stage 2: act = bf16(silu(nh . gate^T) * (nh . up^T)), nh from h1
-  rms_rows_to_smem(a.h1, a.post_w, m, h, a.eps, nh);
-  __syncthreads();
-  gate_up_rows<MT>(a.gq, a.gd, nh, m, h, f, a.act, gwarp, nwarps, lane);
-  grid.sync();
-
-  // stage 3: out = act . down^T + h1
-  gemv_rows<MT, Src::kL2>(a.dq, a.dd, a.act, m, f, h, a.h1, a.out, h, gwarp,
-                          nwarps, lane);
-  if (a.qq == nullptr) return;   // uniform over the grid: no barrier skipped
-  grid.sync();
-
-  // stage 4: qkv = nh2 . next_qkv^T, nh2 = the next layer's input norm of out
-  rms_rows_to_smem(a.out, a.next_w, m, h, a.eps, nh);
-  __syncthreads();
-  gemv_rows<MT, Src::kShared>(a.qq, a.qs, nh, m, h, a.nq, nullptr, a.qkv,
-                              a.nq, gwarp, nwarps, lane);
 }
 
-// Co-resident grid size of q8_layer_fused_kernel<MT> for row width h on
-// device dev: the attribute and occupancy queries run once per (dev, h)
-// and are cached, so a decode step's 28 launches make none of them.
-template <int MT>
-cudaError_t grid_blocks(int dev, int h, int* blocks) {
+// bf16 rows src [m, k] (written in the launch or not; read via L2),
+// columns [c0, c1), into X (`xstride` bytes a row)
+__device__ void load_rows(const __nv_bfloat16* src, int m, int k, int c0,
+                          int c1, unsigned char* X, int xstride) {
+  const int w = (c1 - c0) / 8;
+  for (int i = threadIdx.x; i < m * w; i += kThreads) {
+    const int r = i / w, c = c0 + (i - r * w) * 8;
+    *reinterpret_cast<uint4*>(X + r * xstride + (c - c0) * 2) =
+        __ldcg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * k
+                                              + c));
+  }
+}
+
+// X rows = bf16((x * 1/sqrt(mean(x^2) + eps)) * w) of the f32 rows x [m, h]
+// written in this launch (read via L2), one warp a row
+__device__ void rms_rows(const float* x, const __nv_bfloat16* w, int m,
+                         int h, float eps, unsigned char* X, int xstride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < m; r += kWarps) {
+    const float* xr = x + static_cast<size_t>(r) * h;
+    float ss = 0.f;
+    for (int c = lane * 4; c < h; c += 128) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
+      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    const float inv = 1.f / sqrtf(q8::warp_sum(ss) / static_cast<float>(h)
+                                  + eps);
+    for (int c = lane * 4; c < h; c += 128) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
+      const uint2 wr = __ldg(reinterpret_cast<const uint2*>(w + c));
+      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(&wr);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          (v.x * inv) * __bfloat162float(wb[0]),
+          (v.y * inv) * __bfloat162float(wb[1]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(
+          (v.z * inv) * __bfloat162float(wb[2]),
+          (v.w * inv) * __bfloat162float(wb[3]));
+      uint2 o;
+      o.x = *reinterpret_cast<const unsigned*>(&lo);
+      o.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(X + r * xstride + c * 2) = o;
+    }
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, kMode == kUnit ? 2 : 1)
+q8_layer_fused_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kMma = kMode != kUnit;
+  const int tid = threadIdx.x;
+  const int m = a.m, h = a.h, f = a.f;
+  int lay[kLayoutLen];
+#pragma unroll
+  for (int i = 0; i < kLayoutLen; ++i) lay[i] = __ldg(a.plan + i);
+  int lo[kMats], n[kMats];
+#pragma unroll
+  for (int i = 0; i < kMats; ++i) {
+    const int* row = a.plan + kLayoutLen + i * (gridDim.x + 1) + blockIdx.x;
+    lo[i] = __ldg(row);
+    n[i] = __ldg(row + 1) - lo[i];
+  }
+  const bool timed = a.stamps != nullptr && blockIdx.x == 0 && tid == 0;
+  if (timed) {
+    a.stamps[0] = global_ns();
+    a.stamps[1] = clock64();
+  }
+  unsigned char* X = smem + lay[kX];
+  float* xs = reinterpret_cast<float*>(X);   // kUnit: one f32 row
+  float* red = reinterpret_cast<float*>(smem + lay[kRed]);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay[kBars]);
+  uint64_t* hbar = bars + kMats;             // the head ring's tiles
+  float* part = reinterpret_cast<float*>(hbar + kMaxHeadTiles);
+  unsigned char* slot[kMats] = {smem + lay[kSlotO], smem + lay[kSlotGateUp],
+                                smem + lay[kSlotDown], smem + lay[kSlotQkv]};
+  const int xcols = lay[kXcols], xstride = lay[kXstride];
+  const int hr = lay[kHeadRows], nt = lay[kHeadTiles];
+  const bool with_q = a.qq != nullptr;
+  const unsigned tb = slab_bytes(hr, h);
+  const int tiles = hr > 0 ? (n[kQkv] + hr - 1) / hr : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kMats + nt; ++i) bar_init(bars + i);
+    bar_init_fence();
+  }
+  __syncthreads();
+  fetch(slot[kO], bars + kO, a.oq, a.od, a.qd, lo[kO], n[kO], 0);
+  fetch(slot[kGateUp], bars + kGateUp, a.gq, a.gd, h, lo[kGateUp],
+        n[kGateUp], f);
+  fetch(slot[kDown], bars + kDown, a.dq, a.dd, f, lo[kDown], n[kDown], 0);
+  // The qkv slab (or each of the head's first tiles) goes out at the start
+  // unless its bytes overlap gate_up's slot: then after gate_up's barrier
+  // (stage 2).
+  auto when = [&](size_t off, size_t bytes) {
+    const size_t s = lay[kSlotGateUp];
+    return off < s + lay[kSizeGateUp] && s < off + bytes ? 2 : 0;
+  };
+  auto late = [&](int stage) {
+    if (!with_q) return;
+    if (hr == 0) {
+      if (when(lay[kSlotQkv], slab_bytes(n[kQkv], h)) == stage)
+        fetch(slot[kQkv], bars + kQkv, a.qq, a.qs, h, lo[kQkv], n[kQkv], 0);
+      return;
+    }
+    for (int s = 0; s < nt && s < tiles; ++s)
+      if (when(lay[kSlotQkv] + static_cast<size_t>(s) * tb, tb) == stage)
+        fetch(slot[kQkv] + static_cast<size_t>(s) * tb, hbar + s, a.qq, a.qs,
+              h, static_cast<size_t>(lo[kQkv]) + s * hr,
+              min(hr, n[kQkv] - s * hr), 0);
+  };
+  late(0);
+
+  // the slab's dot products into rb, and row j's against activation row r
+  auto dot = [&](const unsigned char* s, int R, int k, int S, int c0, int c1,
+                 float* rb, bool add) {
+    if constexpr (kMode == kUnit) slab_dot(s, R, k, xs, rb);
+    else mma_slab<kMode == kMmaHi>(s, R, k, S, c0, c1, X, xstride, m, rb,
+                                   add);
+  };
+  auto val = [&](const float* rb, int j, int r, int k, int S) {
+    if constexpr (kMode == kUnit) {
+      return row_sum(rb, j, units_per_row(k));
+    } else {
+      constexpr int kStride = kMode == kMmaHi ? 128 : 64;
+      const float* p = rb + ((j >> 5) * S * kGroup + ((j >> 3) & 3)) * kStride
+                       + r * 8 + (j & 7);
+      float v = 0.f;
+      for (int sl = 0; sl < S; ++sl) v += p[sl * kGroup * kStride];
+      return v;
+    }
+  };
+  // a GEMV stage over bf16 rows src [m, k] in column chunks of the
+  // activation buffer (one chunk unless m rows of k do not fit)
+  auto chunked = [&](const __nv_bfloat16* src, int mat, int k, int S) {
+    for (int c0 = 0; c0 < k; c0 += xcols) {
+      const int c1 = min(k, c0 + xcols);
+      if (c0 > 0) __syncthreads();
+      if constexpr (kMma) load_rows(src, m, k, c0, c1, X, xstride);
+      else load_x(src, k, xs);
+      __syncthreads();
+      if (c0 == 0) bar_wait(bars + mat, 0);
+      dot(slot[mat], n[mat], k, S, c0, c1, red, c0 > 0);
+    }
+    __syncthreads();
+  };
+  auto norm = [&](const float* x, const __nv_bfloat16* w) {
+    if constexpr (kMma) {
+      rms_rows(x, w, m, h, a.eps, X, xstride);
+      __syncthreads();
+    } else {
+      rms_to_xs(x, w, h, a.eps, xs, part);
+    }
+  };
+  cg::grid_group grid = cg::this_grid();
+
+  // stage 1: h1 = xm . o^T + resid
+  chunked(a.xm, kO, a.qd, lay[kSO]);
+  for (int i = tid; i < m * n[kO]; i += kThreads) {
+    const int r = i / n[kO], j = i - r * n[kO];
+    const size_t at = static_cast<size_t>(r) * h + lo[kO] + j;
+    a.h1[at] = val(red, j, r, a.qd, lay[kSO]) + __bfloat162float(a.resid[at]);
+  }
+  grid.sync();
+  if (timed) a.stamps[2] = clock64();
+
+  // stage 2: act = bf16(silu(nh . gate^T) * (nh . up^T)), nh from h1
+  norm(a.h1, a.post_w);
+  bar_wait(bars + kGateUp, 0);
+  dot(slot[kGateUp], 2 * n[kGateUp], h, lay[kSGateUp], 0, h, red, false);
+  __syncthreads();
+  for (int i = tid; i < m * n[kGateUp]; i += kThreads) {
+    const int r = i / n[kGateUp], p = i - r * n[kGateUp];
+    const float g = val(red, p, r, h, lay[kSGateUp]);
+    const float u = val(red, n[kGateUp] + p, r, h, lay[kSGateUp]);
+    a.act[static_cast<size_t>(r) * f + lo[kGateUp] + p] =
+        __float2bfloat16(g / (1.f + expf(-g)) * u);
+  }
+  grid.sync();
+  if (timed) a.stamps[3] = clock64();
+  late(2);
+
+  // stage 3: out = act . down^T + h1
+  chunked(a.act, kDown, f, lay[kSDown]);
+  for (int i = tid; i < m * n[kDown]; i += kThreads) {
+    const int r = i / n[kDown], j = i - r * n[kDown];
+    const size_t at = static_cast<size_t>(r) * h + lo[kDown] + j;
+    a.out[at] = val(red, j, r, f, lay[kSDown]) + __ldcg(a.h1 + at);
+  }
+  if (with_q) {   // uniform over the grid: no barrier skipped
+    grid.sync();
+    if (timed) a.stamps[4] = clock64();
+
+    // stage 4: the next layer's input norm of out, then its qkv (or the
+    // final norm and the head, in tiles through the ring)
+    norm(a.out, a.next_w);
+    const int S = lay[kSQkv];
+    if (hr == 0) {
+      bar_wait(bars + kQkv, 0);
+      dot(slot[kQkv], n[kQkv], h, S, 0, h, red, false);
+      __syncthreads();
+      for (int i = tid; i < m * n[kQkv]; i += kThreads) {
+        const int r = i / n[kQkv], j = i - r * n[kQkv];
+        a.qkv[static_cast<size_t>(r) * a.nq + lo[kQkv] + j] =
+            val(red, j, r, h, S);
+      }
+    } else {
+      // the unit sums alternate between two buffers, so one __syncthreads
+      // a tile both publishes its sums and frees its slot
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % nt, r0 = t * hr, rows = min(hr, n[kQkv] - r0);
+        float* rb = red + (t & 1) * lay[kRedFloats];
+        unsigned char* ring = slot[kQkv] + static_cast<size_t>(s) * tb;
+        bar_wait(hbar + s, (t / nt) & 1);
+        dot(ring, rows, h, S, 0, h, rb, false);
+        __syncthreads();
+        const int next = t + nt;
+        if (next < tiles)
+          fetch(ring, hbar + s, a.qq, a.qs, h,
+                static_cast<size_t>(lo[kQkv]) + next * hr,
+                min(hr, n[kQkv] - next * hr), 0);
+        for (int i = tid; i < m * rows; i += kThreads) {
+          const int r = i / rows, j = i - r * rows;
+          a.qkv[static_cast<size_t>(r) * a.nq + lo[kQkv] + r0 + j] =
+              val(rb, j, r, h, S);
+        }
+      }
+    }
+    if (timed) a.stamps[5] = clock64();
+  } else if (timed) {
+    a.stamps[4] = clock64();
+  }
+  if (timed) a.stamps[6] = global_ns();
+}
+
+// Co-resident blocks of the kernel of mode `mode` with `smem` bytes of
+// dynamic shared memory on device dev (at most two an SM), cached per
+// (dev, mode, smem): a decode loop at one shape queries once.
+cudaError_t grid_blocks(int dev, int mode, size_t smem, int* blocks) {
   static std::mutex mu;
-  static std::map<std::pair<int, int>, int> cache;   // (dev, h) -> blocks
-  static std::map<int, size_t> smem_attr;            // dev -> smem opt-in set
+  static std::map<std::tuple<int, int, size_t>, int> cache;
+  static std::map<std::pair<int, int>, size_t> smem_attr;  // opt-in set
   std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find({dev, h});
+  const auto key = std::make_tuple(dev, mode, smem);
+  const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *blocks = hit->second;
     return cudaSuccess;
   }
-  auto kernel = q8_layer_fused_kernel<MT>;
+  const void* kernel =
+      mode == kUnit ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kUnit>)
+      : mode == kMmaLo
+          ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaLo>)
+          : reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaHi>);
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t e =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // size the grid for the largest m this instance serves, so the smem of
-  // any m <= MT fits the co-residency the occupancy query reported; the
-  // opt-in only grows, so a wider h cached earlier keeps its smem
-  const size_t smem_max = static_cast<size_t>(MT) * h * sizeof(__nv_bfloat16);
-  if (e == cudaSuccess && smem_max > 48 * 1024 && smem_max > smem_attr[dev]) {
+  // the opt-in only grows, so a larger layout set earlier stays allowed
+  size_t& set = smem_attr[{dev, mode}];
+  if (e == cudaSuccess && smem > 48 * 1024 && smem > set) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_max));
-    if (e == cudaSuccess) smem_attr[dev] = smem_max;
+                             static_cast<int>(smem));
+    if (e == cudaSuccess) set = smem;
   }
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem_max);
+                                                      kThreads, smem);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = sms * (per_sm < kMaxBlocksPerSm ? per_sm : kMaxBlocksPerSm);
-  cache[{dev, h}] = *blocks;
+  cache[key] = *blocks;
   return cudaSuccess;
 }
 
-template <int MT>
-cudaError_t launch(Args& a, cudaStream_t stream) {
-  int dev = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = grid_blocks<MT>(dev, a.h, &blocks);
-  if (e != cudaSuccess) return e;
-  auto kernel = q8_layer_fused_kernel<MT>;
-  const size_t smem = static_cast<size_t>(a.m) * a.h * sizeof(__nv_bfloat16);
-  void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(blocks), dim3(kThreads), args, smem,
-                                     stream);
-}
+int mode_of(int m) { return m == 1 ? kUnit : m <= 8 ? kMmaLo : kMmaHi; }
 
 }  // namespace
 
 // xm: bf16 [m, qd]; resid: bf16 [m, h]; post_w, next_w: bf16 [h];
 // o: int8 [h, qd] + f32 [h, qd/32]; gate_up: [2f, h]; down: [h, f];
-// next qkv: [nq, h] (qq == null: no qkv stage, next_w and qkv unused);
-// scratch h1: f32 [m, h], act: bf16 [m, f]; out: f32 [m, h]; qkv: f32
-// [m, nq]. 1 <= m <= 16, qd, h, f % 32 == 0, 16-byte aligned pointers
-// (checked by the wrapper). Returns the launch's cudaError_t: a grid the
-// card cannot make co-resident is refused, never run partially.
+// next qkv (or the head): [nq, h] (qq == null: no qkv stage, next_w and
+// qkv unused); scratch h1: f32 [m, h], act: bf16 [m, f]; out: f32 [m, h];
+// qkv: f32 [m, nq]; stamps: int64 [7] (the stage timer) or null; plan:
+// int32 [17 + 4 (blocks + 1)], the layout and split table of
+// ops/quant_matmul.py q8_layer_fused_split for this m, blocks and smem.
+// 1 <= m <= 16, qd, h, f % 32 == 0, 16-byte aligned pointers (checked by
+// the wrapper). Returns the launch's cudaError_t: a grid the card cannot
+// make co-resident is refused, never run partially.
 extern "C" int q8_layer_fused(const void* xm, const void* resid,
                               const void* post_w, const void* next_w,
                               const void* oq, const void* od, const void* gq,
                               const void* gd, const void* dq, const void* dd,
                               const void* qq, const void* qs, void* h1,
-                              void* act, void* out, void* qkv, int m, int qd,
-                              int h, int f, int nq, float eps, void* stream) {
-  if (m < 1 || m > 16 || qd % 32 || h % 32 || f % 32)
+                              void* act, void* out, void* qkv, void* stamps,
+                              const void* plan, int m, int qd, int h, int f,
+                              int nq, float eps, int blocks, int smem,
+                              void* stream) {
+  if (m < 1 || m > 16 || qd % 32 || h % 32 || f % 32 || blocks < 1
+      || smem < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const __nv_bfloat16*>(xm),
          static_cast<const __nv_bfloat16*>(resid),
@@ -216,29 +621,38 @@ extern "C" int q8_layer_fused(const void* xm, const void* resid,
          static_cast<const int8_t*>(qq), static_cast<const float*>(qs),
          static_cast<float*>(h1), static_cast<__nv_bfloat16*>(act),
          static_cast<float*>(out), static_cast<float*>(qkv),
+         static_cast<long long*>(stamps), static_cast<const int*>(plan),
          m, qd, h, f, nq, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (m == 1) e = launch<1>(a, s);
-  else if (m <= 4) e = launch<4>(a, s);
-  else e = launch<16>(a, s);
+  const int mode = mode_of(m);
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = grid_blocks(dev, mode, smem, &most);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks > most)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const void* kernel =
+      mode == kUnit ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kUnit>)
+      : mode == kMmaLo
+          ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaLo>)
+          : reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaHi>);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                  smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The co-resident grid K4 launches at row count m and width h (blocks, out
-// through `blocks`, an int): what the P2 probe (csrc/q8_probe.cu) runs its
-// walk and its barrier-only launch on. Returns a cudaError_t.
-extern "C" int q8_layer_fused_grid(int m, int h, void* blocks) {
-  if (m < 1 || m > 16 || h % 32)
+// The co-resident grid of K4 at row count m with `smem` bytes of dynamic
+// shared memory (blocks, out through `blocks`, an int; at most two an SM):
+// the wrapper sizes its split from it, and the P2 probe (csrc/q8_probe.cu)
+// runs its walk on the grid K4 launches. Returns a cudaError_t.
+extern "C" int q8_layer_fused_grid(int m, int smem, void* blocks) {
+  if (m < 1 || m > 16 || smem < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  int* out = static_cast<int*>(blocks);
-  if (e == cudaSuccess) {
-    if (m == 1) e = grid_blocks<1>(dev, h, out);
-    else if (m <= 4) e = grid_blocks<4>(dev, h, out);
-    else e = grid_blocks<16>(dev, h, out);
-  }
+  if (e == cudaSuccess)
+    e = grid_blocks(dev, mode_of(m), static_cast<size_t>(smem),
+                    static_cast<int*>(blocks));
   return static_cast<int>(e);
 }

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C signatures: name -> argtypes (restype is always int = cudaError_t)
 SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "q8_layer_fused": [_P] * 16 + [_I] * 5 + [_F, _P],
+    "q8_layer_fused": [_P] * 18 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "q8_decode_all": [_P] * 33 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q8i_layer_fused": [_P] * 17 + [_I] * 5 + [_F, _P],

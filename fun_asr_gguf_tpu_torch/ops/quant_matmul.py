@@ -234,8 +234,196 @@ def q8_layer_head_fused(xm, resid, post_w, final_w, o_w: Q8Weight,
                          head_w, eps, head=True)
 
 
+K4_MATS = ("o", "gate_up", "down", "qkv")   # K4's split table rows (qkv:
+                                            # the head in K4c)
+# the plan's leading ints, in the order csrc/q8_layer_fused.cu reads them
+K4_LAYOUT = ("x", "red", "bars", "slot_o", "slot_gate_up", "slot_down",
+             "slot_qkv", "size_gate_up", "xcols", "xstride", "s_o",
+             "s_gate_up", "s_down", "s_qkv", "head_rows", "head_tiles",
+             "red_floats")
+K4_SMEM_BLOCK = 232448    # H100: a block's dynamic shared memory, at most
+K4_SMEM_SM = 233472       # an SM's, 1024 bytes of it reserved per block
+K4_SMEM_RESERVED = 1024
+K4_WARPS = 8              # warps of a block (q8_gemv.cuh kWarps)
+K4_SPAN = 64              # columns of an mma span (m > 1)
+K4_TILE = 8               # weight rows of an mma tile
+K4_GROUP = 4              # tiles of an mma work item
+K4_HEAD_TILE_ROWS = 32    # rows of a tile of K4c's head ring
+K4_MAX_HEAD_TILES = 16
+K4_MISC = 8 * (4 + K4_MAX_HEAD_TILES) + 4 * K4_WARPS   # mbarriers, partials
+
+
+class K4Split(NamedTuple):
+    """K4's work split over a grid of ``blocks`` blocks and the shared
+    memory layout it implies: the table the kernel reads (``plan`` in
+    ``csrc/q8_layer_fused.cu``: :data:`K4_LAYOUT`, then the row starts)."""
+    starts: torch.Tensor  # int32 [4, blocks + 1]: block b's slab of
+                          # K4_MATS[i] is rows [starts[i, b], starts[i, b+1])
+                          # (gate_up: gate/up row pairs)
+    widths: tuple         # k of each of K4_MATS
+    layout: dict          # K4_LAYOUT name -> int (byte offsets, sizes, ...)
+    smem: int             # bytes of dynamic shared memory a block
+    per_sm: int           # blocks an SM the layout is sized for
+
+    @property
+    def blocks(self) -> int:
+        return self.starts.shape[1] - 1
+
+    def table(self) -> torch.Tensor:
+        return torch.cat([torch.tensor([self.layout[k] for k in K4_LAYOUT],
+                                       dtype=torch.int32),
+                          self.starts.flatten()])
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def q8_layer_fused_split(h: int, qd: int, ffn: int, nq: int, m: int,
+                         blocks: int, head: bool = False,
+                         per_sm: int = None) -> K4Split:
+    """K4's split of o, gate_up (gate row j with up row j), down and the
+    qkv (K4c: the head) over ``blocks`` blocks, contiguous ranges of whole
+    rows (counts differ by at most one), and the shared memory layout at
+    ``m`` activation rows: the activation rows (m = 1: one f32 row; else
+    bf16 rows of ``xcols`` columns, 16 bytes of padding a row), the unit
+    sums, the mbarriers, and one slot per slab. The qkv slab has its own
+    slot where the block's budget allows (requested at the start), else it
+    shares gate_up's (requested after gate_up's barrier); K4c's head ring
+    starts at gate_up's slot. Where even that
+    does not fit, the activation rows are taken in chunks of fewer columns.
+    ``per_sm``: blocks an SM (default: two at m = 1, else one). A pure
+    function of the widths, m and the grid."""
+    if not 1 <= m <= FUSED_MAX_ROWS:
+        raise ValueError(f"K4 takes 1..{FUSED_MAX_ROWS} rows, got m={m}")
+    per_sm = per_sm or (2 if m == 1 else 1)
+    mma = m > 1
+    budget = min(K4_SMEM_BLOCK, K4_SMEM_SM // per_sm - K4_SMEM_RESERVED)
+    rows = (h, ffn, h, nq)
+    widths = (qd, h, ffn, h)
+    b = torch.arange(blocks + 1, dtype=torch.int64)
+    starts = torch.stack([b * n // blocks for n in rows]).to(torch.int32)
+    most = (starts[:, 1:] - starts[:, :-1]).amax(1).tolist()
+    slab_rows = [most[0], 2 * most[1], most[2], most[3]]
+    size = [mega_slab_bytes(r, k) for r, k in zip(slab_rows, widths)]
+    hr = K4_HEAD_TILE_ROWS if head else 0
+    tb = mega_slab_bytes(hr, h)
+    stride = 128 if m > 8 else 64    # floats of an mma item's partial tile
+
+    def work(r, k):   # (slices of spans, floats of unit sums) of a slab
+        if not mma:
+            return 1, r * -(-k // MEGA_UNIT_COLS)
+        groups = max(1, -(-r // (K4_TILE * K4_GROUP)))
+        s = max(1, min(-(-k // K4_SPAN), -(-K4_WARPS // groups)))
+        return s, groups * s * K4_GROUP * stride
+
+    stage = [work(r, k) for r, k in zip(slab_rows[:3] + [hr or slab_rows[3]],
+                                        widths)]
+    red_head = stage[3][1] if head else 0
+    red = 4 * max(max(w[1] for w in stage), 2 * red_head)
+    kmax = max(widths)
+    span = K4_SPAN
+    xcols_all = ([kmax] if not mma else
+                 range(-(-kmax // span) * span, -(-h // span) * span - 1,
+                       -span))
+    for xcols in xcols_all:
+        xstride = 2 * xcols + 16 if mma else 4 * kmax
+        x_bytes = m * xstride if mma else 4 * kmax
+        base = _r16(x_bytes) + _r16(red) + _r16(K4_MISC)
+        if head:
+            tiles = min(K4_MAX_HEAD_TILES, (budget - base - _r16(size[0])
+                                            - _r16(size[2])) // tb)
+            places = [("ring", max(size[1], tiles * tb))] if tiles >= 2 else []
+        else:
+            places = [("own", size[1]), ("gate_up", max(size[1], size[3]))]
+        for place, gu in places:
+            q = size[3] if place == "own" else 0
+            total = base + _r16(size[0]) + _r16(gu) + _r16(size[2]) + _r16(q)
+            if total > budget:
+                continue
+            off = dict(x=0, red=_r16(x_bytes))
+            off["bars"] = off["red"] + _r16(red)
+            off["slot_o"] = off["bars"] + _r16(K4_MISC)
+            off["slot_gate_up"] = off["slot_o"] + _r16(size[0])
+            off["slot_down"] = off["slot_gate_up"] + _r16(gu)
+            off["slot_qkv"] = (off["slot_down"] + _r16(size[2])
+                               if place == "own" else off["slot_gate_up"])
+            layout = dict(
+                off, size_gate_up=size[1], xcols=xcols,
+                xstride=xstride if mma else 0, s_o=stage[0][0],
+                s_gate_up=stage[1][0], s_down=stage[2][0],
+                s_qkv=stage[3][0], head_rows=hr,
+                head_tiles=tiles if head else 0,
+                red_floats=red_head)
+            return K4Split(starts, widths, layout, total, per_sm)
+    raise ValueError(f"q8_layer_fused: no shared-memory layout of "
+                     f"{budget} bytes a block at h={h}, qd={qd}, f={ffn}, "
+                     f"nq={nq}, m={m} on {blocks} blocks")
+
+
+_k4_plans = {}
+
+
+def _k4_plan(dev, h, qd, ffn, nq, m, head):
+    """K4's split on the card's co-resident grid (two blocks an SM at m =
+    1 where registers allow, else one) and its table on the card, cached
+    per (device, widths, head, m)."""
+    from ..kernels import build
+    key = (dev.index, h, qd, ffn, nq, head, m)
+    plan = _k4_plans.get(key)
+    if plan is None:
+        sms = build.sm_count(dev)
+        for per_sm in ((2, 1) if m == 1 else (1,)):
+            split = q8_layer_fused_split(h, qd, ffn, nq, m, per_sm * sms,
+                                         head, per_sm)
+            if build.grid_blocks("q8_layer_fused_grid", m,
+                                 split.smem) >= split.blocks:
+                break
+        else:
+            raise RuntimeError(f"q8_layer_fused: no co-resident grid of one "
+                               f"block an SM at h={h}, m={m}")
+        plan = _k4_plans[key] = (split, split.table().to(dev))
+    return plan
+
+
+def q8_layer_fused_grid(m: int, h: int, qd: int, ffn: int, nq: int) -> int:
+    """K4a's grid (blocks) at m rows and these widths on the current card
+    (the P2 probe runs its walk on it)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return _k4_plan(dev, h, qd, ffn, nq, m, False)[0].blocks
+
+
+K4_STAMPS = 7
+
+
+def q8_layer_fused_stage_ms(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                            next_qkv_w, eps, head=False):
+    """K4's time by stage, read by its stage timer in one launch on CUDA
+    (the arguments of :func:`q8_mlp_qkv_fused`; ``next_in_w`` and
+    ``next_qkv_w`` None for K4b; ``head``: K4c, the final norm and the
+    head in their place): ms of each stage, from the grid barrier before
+    it to the one after it (the last to block 0's end) as block 0 sees it
+    — ``o``, ``gate_up`` (with the post norm), ``down`` and ``qkv`` or
+    ``head`` (with its norm) — and ``span``, block 0's whole run on the
+    card's global timer, which the stages add up to. Returns (that dict,
+    the launch's outputs)."""
+    stamps = torch.zeros(K4_STAMPS, dtype=torch.int64, device=xm.device)
+    out = _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                        next_qkv_w, eps, head=head, stamps=stamps)
+    st = stamps.cpu()
+    names = ["o", "gate_up", "down"]
+    if next_qkv_w is not None:
+        names.append("head" if head else "qkv")
+    span_ns = int(st[-1] - st[0])
+    cycles = st[1:2 + len(names)].diff().double()
+    ms = cycles * (span_ns / 1e6 / float(cycles.sum()))
+    stages = dict(zip(names, ms.tolist()))
+    stages["span"] = span_ns / 1e6
+    return stages, out
+
+
 def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
-                  next_qkv_w, eps, head=False):
+                  next_qkv_w, eps, head=False, stamps=None):
     global fused_launches, head_fused_launches
     from ..kernels import build
     if xm.dim() != 2 or resid.dim() != 2:
@@ -279,6 +467,7 @@ def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
     if any(t.data_ptr() % 16 for t in tensors[2:] + [xm, resid]):
         raise ValueError("q8 layer chain kernel needs 16-byte aligned inputs")
     dev = xm.device
+    split, table = _k4_plan(dev, h, qd, f, nq, m, head)
     h1 = torch.empty((m, h), dtype=torch.float32, device=dev)
     act = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
     out = torch.empty((m, h), dtype=torch.float32, device=dev)
@@ -292,7 +481,9 @@ def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
         build.ptr(next_qkv_w.q) if with_qkv else null,
         build.ptr(next_qkv_w.d) if with_qkv else null,
         build.ptr(h1), build.ptr(act), build.ptr(out), build.ptr(qkv),
-        m, qd, h, f, nq, float(eps), build.stream_ptr(dev))
+        null if stamps is None else build.ptr(stamps), build.ptr(table),
+        m, qd, h, f, nq, float(eps), split.blocks, split.smem,
+        build.stream_ptr(dev))
     build.check(code, "q8_layer_fused")
     if head:
         head_fused_launches += 1

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from ..ops.quant_matmul import (Q8Weight, _rms_f32, dequantize, layer,
-                                q8_decode_all_grid, q8_mlp_qkv_fused,
+                                q8_decode_all_grid, q8_layer_fused_grid,
+                                q8_mlp_qkv_fused,
                                 q8_mlp_qkv_fused_plain)
 from . import SLEEP_CYCLES, check_cuda, launch, nbytes, rel_err, time_ms
 from . import q8_bw_probe as p5
@@ -142,9 +143,10 @@ def p2_walk(xm, res, pw, nw, ws, eps=EPS, barriers=0, blocks=None,
 
 
 def k4_grid(h=H):
-    """K4's co-resident grid at m = 1 (``q8_layer_fused_grid``)."""
-    from ..kernels import build
-    return build.grid_blocks("q8_layer_fused_grid", 1, h)
+    """K4a's grid at m = 1 and width h, Qwen3-0.6B's other widths
+    (``ops.quant_matmul.q8_layer_fused_grid``: the blocks its split is
+    sized for)."""
+    return q8_layer_fused_grid(1, h, QD, FFN, NQ)
 
 
 def k5_grid(h=H):

@@ -250,9 +250,11 @@ def test_flash_decode_tickets_reset_between_calls(dev):
 QD, H, F, NQ = 512, 256, 384, 640     # K4 test widths (all % 32 == 0)
 
 
-def _chain(dev, m, seed, layers=None):
+def _chain(dev, m, seed, layers=None, ffn=F, widths=(QD, H, NQ),
+           d_range=(1e-3, 3e-3)):
     """Inputs of one K4 call; with ``layers`` the weights are views of
     stacked [layers, n, k] tensors (layer 1)."""
+    qd, h, nq = widths
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
 
@@ -262,16 +264,16 @@ def _chain(dev, m, seed, layers=None):
             torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8),
             (torch.rand(*shape[:-1], k // 32, generator=g, device=dev)
-             * 2e-3 + 1e-3).half().float())
+             * (d_range[1] - d_range[0]) + d_range[0]).half().float())
         return tqm.layer(w, 1) if layers else w
 
     def norm_w():
-        return (1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(bf)
+        return (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(bf)
 
-    xm = torch.randn(m, QD, generator=g, device=dev).to(bf)
-    resid = torch.randn(m, H, generator=g, device=dev).to(bf)
-    return (xm, resid, norm_w(), norm_w(), q8(H, QD), q8(2 * F, H),
-            q8(H, F), q8(NQ, H))
+    xm = torch.randn(m, qd, generator=g, device=dev).to(bf)
+    resid = torch.randn(m, h, generator=g, device=dev).to(bf)
+    return (xm, resid, norm_w(), norm_w(), q8(h, qd), q8(2 * ffn, h),
+            q8(h, ffn), q8(nq, h))
 
 
 # same bf16 products; f32 sums in another order can flip isolated bf16
@@ -280,7 +282,7 @@ def _chain(dev, m, seed, layers=None):
 K4_TOL = 5e-3
 
 
-@pytest.mark.parametrize("m", [1, 2, 9, 16])
+@pytest.mark.parametrize("m", [1, 2, 4, 9, 16])
 def test_q8_layer_fused_kernel_matches_plain(dev, m):
     xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=m)
     before = tqm.fused_launches
@@ -298,8 +300,9 @@ def test_q8_layer_fused_kernel_matches_plain(dev, m):
                                                  1e-6)) < K4_TOL
 
 
-def test_q8_layer_fused_kernel_reads_a_stacked_layer_in_place(dev):
-    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, 3, seed=7, layers=3)
+@pytest.mark.parametrize("m", [1, 3, 9])
+def test_q8_layer_fused_kernel_reads_a_stacked_layer_in_place(dev, m):
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=7, layers=3)
     assert o.q.data_ptr() == o.q.untyped_storage().data_ptr() + H * QD
     out, got_qkv = tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv,
                                         1e-6)
@@ -307,6 +310,108 @@ def test_q8_layer_fused_kernel_reads_a_stacked_layer_in_place(dev):
                                                   dn, qkv, 1e-6)
     assert _rel_err(out, ref_out) < K4_TOL
     assert _rel_err(got_qkv, ref_qkv) < K4_TOL
+
+
+@pytest.mark.parametrize("m", [1, 9])
+def test_q8_layer_fused_kernel_takes_widths_not_multiples_of_128(dev, m):
+    """f = 416: down's rows of scales are not whole 16-byte words, so the
+    kernel copies them with plain loads beside the bulk copy of the int8
+    rows."""
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=30 + m, ffn=416)
+    out, got_qkv = tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv,
+                                        1e-6)
+    ref_out, ref_qkv = tqm.q8_mlp_qkv_fused_plain(xm, resid, pw, nw, o, gu,
+                                                  dn, qkv, 1e-6)
+    assert _rel_err(out, ref_out) < K4_TOL
+    assert _rel_err(got_qkv, ref_qkv) < K4_TOL
+
+
+@pytest.mark.parametrize("m", [1, 9])
+def test_q8_layer_fused_kernel_repeats_bit_for_bit(dev, m):
+    """Each row's sums are added in a fixed order whatever the blocks'
+    timing: calls on the same inputs are equal bit for bit."""
+    args = _chain(dev, m, seed=40 + m)
+    first = tqm.q8_mlp_qkv_fused(*args, 1e-6)
+    last = tqm.q8_mlp_fused(*args[:3], *args[4:7], 1e-6)
+    for _ in range(3):
+        for a, b in zip(first, tqm.q8_mlp_qkv_fused(*args, 1e-6)):
+            assert torch.equal(a, b)
+        assert torch.equal(last, tqm.q8_mlp_fused(*args[:3], *args[4:7],
+                                                  1e-6))
+
+
+@pytest.mark.parametrize("m", [1, 9])
+@pytest.mark.parametrize("form", ["qkv", "last", "head"])
+def test_q8_layer_fused_stage_timer(dev, m, form):
+    """The timed launch gives the untimed one's outputs bit for bit; its
+    stages are positive and add up to within 10 % of block 0's span, which
+    lies inside the host's clock around the launch and its read-back."""
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=50 + m)
+    if form == "head":
+        qkv = _q8(dev, NV, H, seed=m)
+    if form == "last":
+        nw = qkv = None
+    head = form == "head"
+    plain = tqm._launch_fused(xm, resid, pw, nw, o, gu, dn, qkv, 1e-6,
+                              head=head)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages, timed = tqm.q8_layer_fused_stage_ms(xm, resid, pw, nw, o, gu, dn,
+                                                qkv, 1e-6, head=head)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(plain, timed):
+        assert torch.equal(a, b)
+    names = ["o", "gate_up", "down"] + ([] if form == "last" else [form])
+    assert set(stages) == set(names) | {"span"}
+    parts = [stages[k] for k in names]
+    assert all(p > 0 for p in parts)
+    assert sum(parts) == pytest.approx(stages["span"], rel=0.1)
+    assert 0 < stages["span"] < host_ms
+
+
+# Qwen3-0.6B's widths: o 1024x2048, gate_up 6144x1024, down 1024x3072,
+# next qkv 4096x1024 or the 152576-row head, with scales of a trained
+# checkpoint's magnitude, on the card's own grid and layout
+QWEN3_K4 = dict(widths=(2048, 1024, 4096), ffn=3072, d_range=(2e-4, 3.5e-4))
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+@pytest.mark.parametrize("head", [False, True])
+def test_q8_layer_fused_kernel_matches_plain_at_qwen3_width(dev, m, head,
+                                                            monkeypatch):
+    """Every slot placement the split makes at full width: the qkv slab
+    in a slot of its own (m = 1, 8, 9) or in o's (m = 16), K4c's head
+    ring partly requested at the start (m = 1) or after gate_up."""
+    xm, resid, pw, nw, o, gu, dn, qkv = _chain(dev, m, seed=60 + m,
+                                               **QWEN3_K4)
+    if head:
+        monkeypatch.setenv("FUNASR_Q8_FUSED_HEAD", "1")
+        qkv = _q8(dev, 152576, 1024, seed=m)
+        qkv = tqm.Q8Weight(qkv.q, qkv.d * 0.3)
+        got = tqm.q8_layer_head_fused(xm, resid, pw, nw, o, gu, dn, qkv,
+                                      1e-6)
+        ref = tqm.q8_layer_head_fused_plain(xm, resid, pw, nw, o, gu, dn,
+                                            qkv, 1e-6)
+    else:
+        got = tqm.q8_mlp_qkv_fused(xm, resid, pw, nw, o, gu, dn, qkv, 1e-6)
+        ref = tqm.q8_mlp_qkv_fused_plain(xm, resid, pw, nw, o, gu, dn, qkv,
+                                         1e-6)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert _rel_err(g, r) < K4_TOL
+
+
+def test_q8_layer_fused_split_fits_the_cards_grid(dev):
+    """Two blocks an SM at m = 1, one at m > 1, at Qwen3-0.6B's widths."""
+    from fun_asr_gguf_tpu_torch.kernels import build
+    sms = build.sm_count(dev)
+    for m, per_sm in ((1, 2), (9, 1), (16, 1)):
+        assert tqm.q8_layer_fused_grid(m, 1024, 2048, 3072, 4096) == (
+            per_sm * sms)
+        split = tqm.q8_layer_fused_split(1024, 2048, 3072, 4096, m,
+                                         per_sm * sms)
+        assert build.grid_blocks("q8_layer_fused_grid", m,
+                                 split.smem) >= per_sm * sms
 
 
 def test_q8_layer_fused_kernel_refuses_what_it_does_not_take(dev):
