@@ -27,8 +27,11 @@ Phases, one line each (any failure raises and exits non-zero):
    with its stage timer, each GEMV stage's bytes over its time beside
    P5's rates, K6 (the q8_0 x q8_0 block-dot
    product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
-   (the int8-dot layer chain, with and without the next-layer qkv) at
-   m = 1 and m = 9 on the same layer views; then the probes, each kernel
+   (the int8-dot layer chain on the streaming engine, with and without the
+   next-layer qkv, the attention rows quantized in the kernel) at m = 1,
+   2, 8, 9 and 16 on the same layer views, bit-equal to its JAX-signature
+   entry, split by stage with its stage timer at m = 1 and 9; then the
+   probes, each kernel
    against its plain version: P12 (the split-KV stage alone at chunk
    counts 1 ... 32), P6-P11 (the natural-order scale expansion, a
    transpose, rope by lane shuffle and by a rotation product, a batched
@@ -68,9 +71,10 @@ JAX.
     python3 chip_smoke.py --parent DIR   # DIR: another checkout (e.g.
                                          # the parent commit)
 
-also times that checkout's K4a, K4b, K4c (m = 1 and 9) and K5 in turns
-with this one's (phase 3), on the same inputs in the same process, and
-its all-layers decode step on this one's engine (phase 4).
+also times that checkout's K4a, K4b, K4c, K7 (m = 1 and 9) and K5 in
+turns with this one's (phase 3), on the same inputs in the same process,
+with the parent decoder's per-layer ``quantize_act_q8`` + K7 against the
+folded K7, and its all-layers decode step on this one's engine (phase 4).
 """
 
 import contextlib
@@ -120,8 +124,9 @@ K5_COS = 0.9995   # cosine of the logits against the plain version (measured
                   # >= 0.99972)
 K6_TOL = 1e-4     # the same integer partials; the scales and the block sum
                   # in f32, in another order
-K7_TOL = 5e-3     # as K6, and rsqrtf against the plain 1/sqrt can flip an
-                  # isolated int8 value at a .5 boundary of a quantized row
+K7_TOL = 5e-3     # as K6, and the kernel's IEEE 1/sqrt against the plain
+                  # torch.rsqrt can flip an isolated int8 value at a .5
+                  # boundary of a quantized row
 LAYERS = 28       # Qwen3-0.6B: K4 rows cycle the layers, so L2 is cold
 # the bound of a kernel: NVIDIA's H100 SXM data sheet at 700 W (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -220,7 +225,7 @@ def phase_kernels(dev, parent=None):
     rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w, parent)
     rows["q8_decode_all"], k5_gbps = phase_k5(dev, gen, w, parent)
     rows["q8dot_matmul"] = phase_k6(dev, gen, w)
-    rows["q8i_layer_fused"] = phase_k7(dev, gen, w)
+    rows["q8i_layer_fused"] = phase_k7(dev, gen, w, parent)
     del w
     probe_rows, p5_gbps = phase_probes(dev)
     rows.update(probe_rows)
@@ -631,13 +636,18 @@ def phase_k6(dev, gen, w):
     return row
 
 
-def phase_k7(dev, gen, w):
+def phase_k7(dev, gen, w, parent=None):
     """K7 on layer views of the stacked weights (relabelled as the q8i
     fuse does; timed calls cycle the layers, so L2 is cold): the
-    next-layer-qkv form and the last-layer form, at m = 1 (decode) and
-    m = 9 (verify). The attention output arrives quantized in q8_0
-    columns and the f32 residual as a column, as the decoder passes
-    them."""
+    next-layer-qkv form and the last-layer form at m = 1 (decode), 9
+    (verify) and the m classes' edges 2, 8 and 16, through the decoder's
+    entry (``q8i_layer_fused_rows``: bf16 attention rows, quantized in the
+    kernel, and the f32 residual rows) against its plain version; that
+    entry bit-equal to JAX's signature (``q8i_layer_fused``) on the rows
+    ``quantize_act_q8`` makes; at m = 1 and 9 the stage timer, and with
+    ``parent`` (another checkout's ``ops.quant_matmul``) its K7 in turns
+    with this one on the same q8_0 columns, and its decoder's per-layer
+    work (``quantize_act_q8``, then K7) in turns with the folded entry."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
     norms = w["norms"]
     n_layers = len(norms)
@@ -650,45 +660,83 @@ def phase_k7(dev, gen, w):
         nxt = qm.Q8DotWeight(*qm.layer(w["qkv"], l)) if with_qkv else None
         return [norms[l, 0], norms[l, 1] if with_qkv else None, *ws, nxt]
 
-    def call(fn, aq, as_, res, with_qkv, cycle=True):
+    def layer_args(cycle, with_qkv):
         if cycle:
             ln[0] = (ln[0] + 1) % n_layers
-        return fn(aq, as_, res, *args(ln[0], with_qkv), 1e-6,
-                  with_qkv=with_qkv)
+        return args(ln[0], with_qkv)
+
+    def rows(fn, attn, res, with_qkv, cycle=True):
+        return fn(attn, res, *layer_args(cycle, with_qkv), 1e-6)
+
+    def cols(mod, attn_q, attn_s, res, with_qkv, cycle=True):
+        return mod.q8i_layer_fused(attn_q.t(), attn_s.t(), res.t(),
+                                   *layer_args(cycle, with_qkv), 1e-6,
+                                   with_qkv=with_qkv)
+
+    def decoder_then(mod, attn, res, with_qkv):
+        """the parent decoder's per-layer work: quantize, then K7"""
+        return cols(mod, *mod.quantize_act_q8(attn.float()), res, with_qkv)
 
     row, worst = {}, 0.0
-    for m in (1, 9):
-        aq, as_ = qm.quantize_act_q8(torch.randn(m, qd, generator=gen,
-                                                 device=dev))
+    for m in (1, 2, 8, 9, 16):
+        attn = torch.randn(m, qd, generator=gen, device=dev).to(
+            torch.bfloat16)
         res = torch.randn(m, h, generator=gen, device=dev)
-        cols = (aq.t(), as_.t(), res.t())
+        aq, as_ = qm.quantize_act_q8(attn)
         for with_qkv, name in ((True, "K7 q8i_layer_fused"),
                                (False, "K7 q8i_layer_fused (no qkv)")):
-            got = call(qm.q8i_layer_fused, *cols, with_qkv, cycle=False)
-            ref = call(qm.q8i_layer_fused_plain, *cols, with_qkv,
-                       cycle=False)
+            got = rows(qm.q8i_layer_fused_rows, attn, res, with_qkv, False)
+            ref = rows(qm.q8i_layer_fused_rows_plain, attn, res, with_qkv,
+                       False)
             errs = [compare(f"{name} m={m}", g, r, K7_TOL)
                     for g, r in zip(got, ref) if r is not None]
             err = max(e for e, _ in errs)
             rel = max(r for _, r in errs)
             worst = max(worst, err)
-            ms = time_ms(lambda: call(qm.q8i_layer_fused, *cols, with_qkv))
-            pms = time_ms(lambda: call(qm.q8i_layer_fused_plain, *cols,
-                                       with_qkv), iters=10)
+            jax_sig = cols(qm, aq, as_, res, with_qkv, cycle=False)
+            if not all(g is None or torch.equal(g, c.t())
+                       for g, c in zip(got, jax_sig)):
+                raise RuntimeError(f"{name} m={m}: the decoder's entry and "
+                                   f"JAX's signature are not bit-equal")
+            ms = time_ms(lambda: rows(qm.q8i_layer_fused_rows, attn, res,
+                                      with_qkv))
             ws = [a for a in args(0, with_qkv)[2:] if a is not None]
             nq = ws[3].q.shape[0] if with_qkv else 0
-            b = bound(nbytes(aq, as_, res, *norms[0, :1 + with_qkv],
+            b = bound(nbytes(attn, res, *norms[0, :1 + with_qkv],
                              *(t for q in ws for t in q))
                       + m * (h + nq) * 4,
                       2 * m * sum(q.q.numel() for q in ws), "int8")
+            extra = ""
+            if m in (1, 9):
+                pms = time_ms(lambda: rows(qm.q8i_layer_fused_rows_plain,
+                                           attn, res, with_qkv), iters=10)
+                pk = None if parent is None else (
+                    lambda: cols(parent, aq, as_, res, with_qkv))
+                sig = in_turns(f"{name} m={m} (JAX signature, q8_0 "
+                               f"columns)",
+                               lambda: cols(qm, aq, as_, res, with_qkv), pk)
+                extra = f" plain {pms:.4f} ms; JAX signature {sig:.4f} ms"
+                if parent is not None:
+                    dec = in_turns(
+                        f"{name} m={m} (decoder's per-layer work: parent "
+                        f"quantize_act_q8 + K7 / this folded entry)",
+                        lambda: rows(qm.q8i_layer_fused_rows, attn, res,
+                                     with_qkv),
+                        lambda: decoder_then(parent, attn, res, with_qkv))
+                    extra += f"; folded entry in turns {dec:.4f} ms"
+                k4_stages(f"{name} m={m}", [
+                    lambda l=l: qm.q8i_layer_fused_stage_ms(
+                        attn, res, *args(l, with_qkv), 1e-6)
+                    for l in range(0, n_layers, 4)])
+                if with_qkv and m == 1:
+                    row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
             log(f"[3] {name} m={m} (o {h}x{qd}, gate_up "
                 f"{ws[1].q.shape[0]}x{h}, down {h}x{ws[2].q.shape[1]}"
-                f"{f', qkv {nq}x{h}' if with_qkv else ''}): max_abs_err "
-                f"{err:.3e} rel {rel:.2e} (tol {K7_TOL:g}) kernel {ms:.4f} ms "
-                f"plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
+                f"{f', qkv {nq}x{h}' if with_qkv else ''}; bf16 attention "
+                f"rows quantized in the kernel): max_abs_err {err:.3e} rel "
+                f"{rel:.2e} (tol {K7_TOL:g}), bit-equal to JAX's signature; "
+                f"kernel {ms:.4f} ms{extra}; bound {b['bound_ms']:.4f} ms "
                 f"({b['bound_by']}); library: no single call")
-            if with_qkv and m == 1:
-                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
     row["max_abs_err"] = worst
     return row
 
@@ -854,7 +902,7 @@ KERNELS = [
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1970"),
     ("q8dot_matmul", "fun_asr_gguf_tpu_torch/csrc/q8dot_matmul.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1416"),
-    ("q8i_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8i_layer_fused.cu",
+    ("q8i_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8_layer_fused.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1586"),
 ]
 # the probes (on no path of the engine: 0 launches in phase 4)
@@ -1417,6 +1465,10 @@ def decode_step_ms(engines, parent=None, steps=64):
                     for n, v in res.items())
         + "; verify round (9 rows, T=0, empty draft), ms/round: "
         + ", ".join(f"{n} {v:.3f}" for n, v in verify.items()))
+    log(f"[4] {Q8I} (K6 + K7) against q8_0 fused (K1 + K4), ms/step in the "
+        f"turns above: {' / '.join(f'{x:.3f}' for x in res[Q8I])} against "
+        f"{' / '.join(f'{x:.3f}' for x in res['q8_0'])}; median ratio "
+        f"{np.median(res[Q8I]) / np.median(res['q8_0']):.3f}")
     from fun_asr_gguf_tpu_torch.models import qwen3
     turns = [("this", qwen3)]
     if parent is not None:

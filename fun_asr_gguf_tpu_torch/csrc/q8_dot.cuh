@@ -1,7 +1,8 @@
-// Device helpers shared by the int8-dot q8_0 kernels (K6 q8dot_matmul.cu,
-// K7 q8i_layer_fused.cu): the q8_0 quantization of f32 activation rows into
-// shared memory, the per-block s8 x s8 dot with both block scales, and the
-// cached grid size of a kernel.
+// Device helpers of the int8-dot q8_0 product (K6 q8dot_matmul.cu): the
+// q8_0 quantization of f32 activation rows into shared memory, the
+// per-block s8 x s8 dot with both block scales, and the cached grid size of
+// a kernel. K7 (q8_layer_fused.cu) computes the same contract on the
+// streaming engine.
 //
 // Numerics: llama.cpp's q8_0 x q8_0 vec_dot contract, as JAX's
 // quantize_act_q8 (fun_asr_gguf_tpu/ops/quant_matmul.py:1340) and _q8dot_ref
@@ -58,23 +59,6 @@ __device__ __forceinline__ void quant_rows_to_smem(F value, int m, int k,
   for (int i = warp; i < m * nb; i += kWarps) {
     const int r = i / nb, c = (i - r * nb) * 32;
     quant_block(value(r, c + lane), lane, xq + r * k + c, xs + i);
-  }
-}
-
-// rs[r] = 1 / sqrt(mean(x[r, :h]^2) + eps) for r < m (JAX _rms_col :1489),
-// one warp per row; x was written inside this launch (read via L2).
-__device__ __forceinline__ void rms_scales(const float* x, int m, int h,
-                                           float eps, float* rs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < m; r += kWarps) {
-    const float* xr = x + static_cast<size_t>(r) * h;
-    float ss = 0.f;
-    for (int c = lane * 4; c < h; c += 128) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
-      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-    }
-    const float var = warp_sum(ss) / static_cast<float>(h);
-    if (lane == 0) rs[r] = rsqrtf(var + eps);
   }
 }
 

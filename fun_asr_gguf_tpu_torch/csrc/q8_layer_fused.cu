@@ -86,6 +86,53 @@
 // The stage timer (a non-null `stamps`, a measurement, never on the decode
 // path): block 0's thread 0 writes %globaltimer and clock64 at the start,
 // clock64 after each grid barrier and at the end, %globaltimer at the end.
+//
+// K7 — the int8-dot q8_0 layer chain: the same kernel under the other dot
+// contract (template argument kI8), the same split, slabs and requests
+// (its weights are K4's bytes relabelled):
+//
+//   h1  = q8(attn) . o^T + resid                                (f32)
+//   act = silu(q8(rms(h1) * post_w) . gate^T) * (... . up^T)    (f32)
+//   out = q8(act) . down^T + h1                                 (f32, output)
+//   qkv = q8(rms(out) * next_w) . next_qkv^T                    (f32, optional)
+//
+// q8(.) is the q8_0 quantization of f32 rows per 32-block, and every
+// product is llama.cpp's q8_0 x q8_0 block dot (q8_dot.cuh): an exact int32
+// partial per block, then * d_w * d_x in f32, summed in f32. Replaces the
+// Pallas kernels fun_asr_gguf_tpu/ops/quant_matmul.py q8i_layer_fused
+// (:1586; pallas_call :1650 with the next layer's qkv, :1667 without; body
+// _q8i_layer_body :1516) with the numerics of _q8i_layer_ref (:1550): every
+// intermediate f32, only the quantizations round. Stage 1 takes the merged
+// attention rows (bf16, as K2 returns them) and quantizes them itself, the
+// caller's quantize_act_q8 folded in, or takes them quantized (the JAX
+// signature's entry): the same IEEE arithmetic, so both give the same bytes
+// and the same outputs bit for bit.
+// What bounds it: bytes, K4a's 17.69 MB a call (12.98 without the qkv), a
+// 5.3 us floor at 3.35 TB/s, at m = 1 and m = 9 alike.
+// What the design does about the warp-per-row form it replaces (one warp
+// an output row, its weight row read through __ldg, so each stage waited
+// on DRAM latency and nothing was in flight across the barriers; dp4a once
+// per activation row, 16 rows of registers at m = 9; the attention rows
+// quantized by ~16 small kernels on the host side of every layer):
+// - K4's stream: each block's slabs requested in the first instructions; a
+//   stage waits only on its own slab's mbarrier.
+// - The activation rows sit in shared memory as q8_0, int8 rows and f32
+//   block scales (m k + m k / 8 bytes, rows padded by 32 bytes). Every
+//   block quantizes the attention rows and the normed rows itself after a
+//   barrier, from the rows in device memory (read via L2; four lanes a
+//   block, amax by shuffles: quant_rows). At m > 1 that work, not the
+//   stream, set the stages' times, so the gated rows are quantized once,
+//   by the block that produces them (the split gives it whole 32-pair
+//   blocks), and the down stage copies the q8_0 rows.
+// - m = 1: K5's units of 512 columns, dp4a on the int8 slab and row
+//   (q8s::slab_dot_i8): no dequant, four MACs an instruction, one f32
+//   multiply pair a block.
+// - m = 2..16: mma.sync m16n8k32 s8 (mma_slab_i8): one mma is one q8_0
+//   block, its int32 fragment the block's exact partial for (activation
+//   row, weight row), converted exactly (q8s::i2f_exact) and scaled into f32
+//   accumulators; K4's items (four 8-row tiles x a slice of the spans).
+// The RMSNorm's 1/sqrt is IEEE, as K4's; the plain version's torch.rsqrt
+// may differ by an ulp and so flip an isolated int8 value at a .5 boundary.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -147,6 +194,15 @@ struct Args {
   const int* plan;              // [kLayoutLen + 4 (grid + 1)]
   int m, qd, h, f, nq;
   float eps;
+  // K7 (kI8): the attention rows in bf16 (xm) or already in q8_0 (aq
+  // [m, qd] int8, as [m, qd/32] f32); the f32 residual; the gated rows:
+  // f32 at m = 1, else q8_0 (one scratch: int8, then the scales)
+  const int8_t* aq;
+  const float* as;
+  const float* resid32;         // [m, h]
+  float* act32;                 // scratch [m, f]       (m = 1)
+  int8_t* actq;                 // scratch [m, f]       (m > 1)
+  float* acts;                  // scratch [m, f/32]    (m > 1)
 };
 
 __device__ __forceinline__ long long global_ns() {
@@ -354,7 +410,275 @@ __device__ void rms_rows(const float* x, const __nv_bfloat16* w, int m,
   }
 }
 
-template <int kMode>
+// ---------------------------------------------------------------------------
+// K7: the activation rows in q8_0, and the s8 x s8 mma form of a slab
+// ---------------------------------------------------------------------------
+
+// The q8_0 form of rows [0, m), columns [c0, c1), of the f32 values
+// value(r, c) (a float4 of columns c .. c + 3) into the int8 rows X
+// (`xstride` bytes apart, column c0 first) and their scales xs[b bs + r rs]
+// (block b of the chunk; in shared memory rs = 1 and bs = 8 or 16 rows for
+// the mma form at m <= 8 or m > 8, 1 for the one row of m = 1; rows [m,
+// k / 32] in device memory: bs = 1, rs = k / 32). Four lanes a 32-block, eight values
+// a lane, amax by two shuffles; d = amax / 127 (IEEE), q = v * (1 / d)
+// rounded half away from zero, 0 where d = 0 (q8_dot.cuh quant_block,
+// JAX's quantize_act_q8), so equal values give equal bytes whatever their
+// source. Group g of four lanes takes the blocks g, g + 64, ... of the rows
+// in row order, kQuantBatch of them in flight at a time (the rows come
+// from L2: one round trip a batch, not one a block). At m > 1 a block is
+// the SM's only one, so the instructions a block costs, not the lanes
+// busy, set the time: the row and block of the next item are stepped, not
+// divided, and the rounding takes one conversion. The caller syncs the
+// block after.
+constexpr int kQuantBatch = 4;
+
+template <class F>
+__device__ void quant_rows(F value, int m, int c0, int c1, unsigned char* X,
+                           int xstride, float* xs, int bs, int rs) {
+  constexpr int kGroups = kThreads / 4;   // four-lane groups of the block
+  const int sub = threadIdx.x & 3, nb = (c1 - c0) >> 5, total = m * nb;
+  int r = 0, b = threadIdx.x >> 2;         // this group's next item
+  while (b >= nb && r < m) {
+    b -= nb;
+    ++r;
+  }
+  // every lane of a warp runs the same iterations: the shuffles see the
+  // whole warp
+  for (int i0 = 0; i0 < total; i0 += kQuantBatch * kGroups) {
+    float4 v[kQuantBatch][2];
+    int rb[kQuantBatch][2];
+#pragma unroll
+    for (int u = 0; u < kQuantBatch; ++u) {
+      rb[u][0] = r;
+      rb[u][1] = b;
+      if (r < m) {
+        const int c = c0 + 32 * b + 8 * sub;
+        v[u][0] = value(r, c);
+        v[u][1] = value(r, c + 4);
+      } else {
+        v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (b += kGroups; b >= nb && r < m; b -= nb) ++r;
+    }
+#pragma unroll
+    for (int u = 0; u < kQuantBatch; ++u) {
+      if (i0 + u * kGroups >= total) break;   // warp-uniform
+      const float4 p = v[u][0], q = v[u][1];
+      float amax = fmaxf(fmaxf(fmaxf(fabsf(p.x), fabsf(p.y)),
+                               fmaxf(fabsf(p.z), fabsf(p.w))),
+                         fmaxf(fmaxf(fabsf(q.x), fabsf(q.y)),
+                               fmaxf(fabsf(q.z), fabsf(q.w))));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      const float d = amax / 127.0f;
+      const float inv = d == 0.f ? 0.f : 1.0f / d;
+      // round half away from zero: floor(|t| + 0.5) in one conversion
+      auto q8 = [inv](float x) {
+        const float t = __fmul_rn(x, inv);
+        const int a = __float2int_rd(fabsf(t) + 0.5f);
+        return static_cast<unsigned>(t < 0.f ? -a : a) & 0xFFu;
+      };
+      auto word = [&](float4 f) {
+        return q8(f.x) | q8(f.y) << 8 | q8(f.z) << 16 | q8(f.w) << 24;
+      };
+      const int rr = rb[u][0], bb = rb[u][1];
+      if (rr < m) {
+        *reinterpret_cast<uint2*>(X + rr * xstride + 32 * bb + 8 * sub) =
+            make_uint2(word(p), word(q));
+        if (sub == 0) xs[bb * bs + rr * rs] = d;
+      }
+    }
+  }
+}
+
+// Rows [0, m), columns [c0, c1), of q8_0 rows in device memory (aq int8
+// [m, k], as f32 [m, k / 32]; quantized before the launch or in it, read
+// via L2) into X and xs as quant_rows lays them out in shared memory.
+__device__ void copy_q8_rows(const int8_t* aq, const float* as, int m, int k,
+                             int c0, int c1, unsigned char* X, int xstride,
+                             float* xs, int bs) {
+  const int w = (c1 - c0) >> 4, nb = (c1 - c0) >> 5;
+  for (int i = threadIdx.x; i < m * w; i += kThreads) {
+    const int r = i / w, c = c0 + 16 * (i - r * w);
+    *reinterpret_cast<uint4*>(X + r * xstride + (c - c0)) = __ldcg(
+        reinterpret_cast<const uint4*>(aq + static_cast<size_t>(r) * k + c));
+  }
+  for (int i = threadIdx.x; i < m * nb; i += kThreads) {
+    const int r = i / nb, b = i - r * nb;
+    xs[b * bs + r] = __ldcg(as + static_cast<size_t>(r) * (k >> 5) +
+                            (c0 >> 5) + b);
+  }
+}
+
+// rs[r] = 1 / sqrt(mean(x[r]^2) + eps) of the f32 rows x [m, h] written in
+// this launch (read via L2), one warp a row (rms_rows' sum)
+__device__ void row_norms(const float* x, int m, int h, float eps,
+                          float* rs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < m; r += kWarps) {
+    const float* xr = x + static_cast<size_t>(r) * h;
+    float ss = 0.f;
+#pragma unroll 8
+    for (int c = lane * 4; c < h; c += 128) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(xr + c));
+      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    ss = q8::warp_sum(ss);
+    if (lane == 0) rs[r] = 1.f / sqrtf(ss / static_cast<float>(h) + eps);
+  }
+}
+
+// four bf16 as f32
+__device__ __forceinline__ float4 bf16x4(uint2 v) {
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// c = the exact int32 product of one 16 x 32 int8 A tile and one 32 x 8 B
+__device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1,
+                                       unsigned a2, unsigned a3, unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "r"(0),
+        "r"(0), "r"(0), "r"(0));
+}
+
+// The int8-dot mma form of a slab's dot products over columns [c0, c1) of
+// the q8_0 activation rows (X: int8 rows `xstride` bytes apart, column c0
+// first; xs: their scales, [block of the chunk][kHi ? 16 : 8]). Work item
+// it = (group it / S of kGroup 8-row tiles, slice it % S of the rows'
+// 64-column spans, two q8_0 blocks each), as mma_slab; the partial tiles go to red as
+// there. One m16n8k32 mma is one block: its int32 fragment is the block's
+// exact partial for (activation row, weight row), converted exactly and
+// scaled by d_w d_x into f32 accumulators in block order. The k order
+// inside a block is free as long as A and B agree: lane (g, t) loads the
+// 16 bytes at 16 t of a span of weight row g (one 16-byte load a tile),
+// and lanes t and t ^ 2 swap halves, so that for each block of the span
+// lane t holds the block's bytes off(t) .. off(t) + 7, off(t) = 8 (2 (t &
+// 1) + (t >> 1)); activation rows g and g + 8 give the same bytes (one
+// 8-byte load each; rows padded by 32 bytes, so the loads are conflict
+// free). A span past k holds one block. Lanes past the slab's rows read
+// its last row; their columns of a tile are never read.
+template <bool kHi>
+__device__ void mma_slab_i8(const unsigned char* slot, int R, int k, int S,
+                            int c0, int c1, const unsigned char* X,
+                            int xstride, const float* xs, int m, float* red,
+                            bool add) {
+  constexpr int kStride = kHi ? 128 : 64;
+  constexpr int kBs = kHi ? 16 : 8;   // scales a block
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo = t < 2;
+  const int tiles = (R + 7) / 8;
+  const int items = (tiles + kGroup - 1) / kGroup * S;
+  const int ns = (k + kSpan - 1) / kSpan, nb = k >> 5;
+  const int sp_lo = c0 / kSpan, sp_hi = (c1 + kSpan - 1) / kSpan;
+  const float* d = reinterpret_cast<const float*>(
+      slot + static_cast<size_t>(R) * k);
+  const bool has0 = g < m, has1 = kHi && g + 8 < m;
+  const int off = 8 * (2 * (t & 1) + (t >> 1));
+  const unsigned char* x0 = X + g * xstride + off;
+  const unsigned char* x1 = X + (g + 8) * xstride + off;
+  for (int it = warp; it < items; it += kWarps) {
+    const int grp = it / S, sl = it - grp * S;
+    const int nt = min(kGroup, tiles - grp * kGroup);   // warp-uniform
+    // offsets of weight row g's bytes and rows 2t, 2t + 1's scales
+    int wq[kGroup], w0d[kGroup], w1d[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int base = (grp * kGroup + i) * 8;
+      wq[i] = min(base + g, R - 1) * k;
+      w0d[i] = min(base + 2 * t, R - 1) * nb;
+      w1d[i] = min(base + 2 * t + 1, R - 1) * nb;
+    }
+    const int a = max(sl * ns / S, sp_lo), b = min((sl + 1) * ns / S, sp_hi);
+    float c[kGroup][4] = {};
+    for (int sp = a; sp < b; ++sp) {
+      const int col = sp * kSpan, blk = col >> 5;
+      const bool two = col + 32 < c1;   // the span's second block is in
+      const int xc = col - c0;
+      uint2 xa = make_uint2(0u, 0u), xb = xa, ya = xa, yb = xa;
+      float sa = 0.f, sb = 0.f, ta = 0.f, tb = 0.f;   // d_x: rows g, g + 8
+      const float* xsb = xs + (xc >> 5) * kBs;
+      if (has0) {
+        xa = *reinterpret_cast<const uint2*>(x0 + xc);
+        sa = xsb[g];
+        if (two) {
+          xb = *reinterpret_cast<const uint2*>(x0 + xc + 32);
+          sb = xsb[kBs + g];
+        }
+      }
+      if (has1) {
+        ya = *reinterpret_cast<const uint2*>(x1 + xc);
+        ta = xsb[g + 8];
+        if (two) {
+          yb = *reinterpret_cast<const uint2*>(x1 + xc + 32);
+          tb = xsb[kBs + 8 + g];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (i >= nt) break;
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (lo || two) q = *reinterpret_cast<const uint4*>(slot + wq[i] + col
+                                                           + 16 * t);
+        const unsigned s0 = lo ? q.z : q.x, s1 = lo ? q.w : q.y;
+        const unsigned r0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+        const unsigned r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+        // z[0], z[1]: activation row g, weight rows 2t, 2t + 1 of tile i;
+        // z[2], z[3]: activation row g + 8
+        int z[4];
+        mma_s8(z, xa.x, ya.x, xa.y, ya.y, lo ? q.x : r0, lo ? q.y : r1);
+        float w0 = d[w0d[i] + blk], w1 = d[w1d[i] + blk];
+        c[i][0] = fmaf(i2f_exact(z[0]) * w0, sa, c[i][0]);
+        c[i][1] = fmaf(i2f_exact(z[1]) * w1, sa, c[i][1]);
+        if (kHi) {
+          c[i][2] = fmaf(i2f_exact(z[2]) * w0, ta, c[i][2]);
+          c[i][3] = fmaf(i2f_exact(z[3]) * w1, ta, c[i][3]);
+        }
+        if (two) {   // warp-uniform
+          mma_s8(z, xb.x, yb.x, xb.y, yb.y, lo ? r0 : q.z, lo ? r1 : q.w);
+          w0 = d[w0d[i] + blk + 1];
+          w1 = d[w1d[i] + blk + 1];
+          c[i][0] = fmaf(i2f_exact(z[0]) * w0, sb, c[i][0]);
+          c[i][1] = fmaf(i2f_exact(z[1]) * w1, sb, c[i][1]);
+          if (kHi) {
+            c[i][2] = fmaf(i2f_exact(z[2]) * w0, tb, c[i][2]);
+            c[i][3] = fmaf(i2f_exact(z[3]) * w1, tb, c[i][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (i >= nt) break;
+      float* r = red + (it * kGroup + i) * kStride + g * 8 + 2 * t;
+      if (add) {
+        r[0] += c[i][0];
+        r[1] += c[i][1];
+        if (kHi) {
+          r[64] += c[i][2];
+          r[65] += c[i][3];
+        }
+      } else {
+        r[0] = c[i][0];
+        r[1] = c[i][1];
+        if (kHi) {
+          r[64] = c[i][2];
+          r[65] = c[i][3];
+        }
+      }
+    }
+  }
+}
+
+template <int kMode, bool kI8>
 __global__ void __launch_bounds__(kThreads, kMode == kUnit ? 2 : 1)
 q8_layer_fused_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -377,7 +701,7 @@ q8_layer_fused_kernel(Args a) {
     a.stamps[1] = clock64();
   }
   unsigned char* X = smem + lay[kX];
-  float* xs = reinterpret_cast<float*>(X);   // kUnit: one f32 row
+  float* xs = reinterpret_cast<float*>(X);   // K4 kUnit: one f32 row
   float* red = reinterpret_cast<float*>(smem + lay[kRed]);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay[kBars]);
   uint64_t* hbar = bars + kMats;             // the head ring's tiles
@@ -389,6 +713,12 @@ q8_layer_fused_kernel(Args a) {
   const bool with_q = a.qq != nullptr;
   const unsigned tb = slab_bytes(hr, h);
   const int tiles = hr > 0 ? (n[kQkv] + hr - 1) / hr : 0;
+  // K7: the q8_0 rows' scales (after the rows: block-major, 8 or 16 rows
+  // a block for the mma form; after the one row at m = 1), and the rows'
+  // norms in the head ring's mbarrier words (K7 has no head)
+  float* qs = reinterpret_cast<float*>(X + (kMma ? m * xstride : xcols));
+  constexpr int kBs = kMode == kMmaHi ? 16 : kMma ? 8 : 1;
+  float* rs = reinterpret_cast<float*>(hbar);
 
   if (tid == 0) {
     for (int i = 0; i < kMats + nt; ++i) bar_init(bars + i);
@@ -424,9 +754,15 @@ q8_layer_fused_kernel(Args a) {
   // the slab's dot products into rb, and row j's against activation row r
   auto dot = [&](const unsigned char* s, int R, int k, int S, int c0, int c1,
                  float* rb, bool add) {
-    if constexpr (kMode == kUnit) slab_dot(s, R, k, xs, rb);
-    else mma_slab<kMode == kMmaHi>(s, R, k, S, c0, c1, X, xstride, m, rb,
+    if constexpr (kI8 && kMode == kUnit)
+      slab_dot_i8(s, R, k, reinterpret_cast<const int8_t*>(X), qs, rb);
+    else if constexpr (kI8)
+      mma_slab_i8<kMode == kMmaHi>(s, R, k, S, c0, c1, X, xstride, qs, m, rb,
                                    add);
+    else if constexpr (kMode == kUnit)
+      slab_dot(s, R, k, xs, rb);
+    else
+      mma_slab<kMode == kMmaHi>(s, R, k, S, c0, c1, X, xstride, m, rb, add);
   };
   auto val = [&](const float* rb, int j, int r, int k, int S) {
     if constexpr (kMode == kUnit) {
@@ -440,13 +776,15 @@ q8_layer_fused_kernel(Args a) {
       return v;
     }
   };
-  // a GEMV stage over bf16 rows src [m, k] in column chunks of the
-  // activation buffer (one chunk unless m rows of k do not fit)
-  auto chunked = [&](const __nv_bfloat16* src, int mat, int k, int S) {
+  // a GEMV stage over rows src [m, k] in column chunks of the activation
+  // buffer (one chunk unless m rows of k do not fit): K4's bf16 rows, or
+  // K7's fill(c0, c1), which writes a chunk's q8_0 rows
+  auto chunked = [&](auto src, int mat, int k, int S) {
     for (int c0 = 0; c0 < k; c0 += xcols) {
       const int c1 = min(k, c0 + xcols);
       if (c0 > 0) __syncthreads();
-      if constexpr (kMma) load_rows(src, m, k, c0, c1, X, xstride);
+      if constexpr (kI8) src(c0, c1);
+      else if constexpr (kMma) load_rows(src, m, k, c0, c1, X, xstride);
       else load_x(src, k, xs);
       __syncthreads();
       if (c0 == 0) bar_wait(bars + mat, 0);
@@ -454,8 +792,29 @@ q8_layer_fused_kernel(Args a) {
     }
     __syncthreads();
   };
+  // K7: the q8_0 form of the f32 values value(r, c)
+  auto q8_rows = [&](auto value) {
+    return [&, value](int c0, int c1) {
+      quant_rows(value, m, c0, c1, X, xstride, qs, kBs, 1);
+    };
+  };
+  // the rows entering the next product after an RMSNorm of x with w
   auto norm = [&](const float* x, const __nv_bfloat16* w) {
-    if constexpr (kMma) {
+    if constexpr (kI8) {
+      row_norms(x, m, h, a.eps, rs);
+      __syncthreads();
+      q8_rows([&](int r, int c) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            x + static_cast<size_t>(r) * h + c));
+        const float4 g = bf16x4(__ldg(reinterpret_cast<const uint2*>(w + c)));
+        const float s = rs[r];
+        return make_float4(__fmul_rn(__fmul_rn(v.x, s), g.x),
+                           __fmul_rn(__fmul_rn(v.y, s), g.y),
+                           __fmul_rn(__fmul_rn(v.z, s), g.z),
+                           __fmul_rn(__fmul_rn(v.w, s), g.w));
+      })(0, h);
+      __syncthreads();
+    } else if constexpr (kMma) {
       rms_rows(x, w, m, h, a.eps, X, xstride);
       __syncthreads();
     } else {
@@ -465,33 +824,78 @@ q8_layer_fused_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
 
   // stage 1: h1 = xm . o^T + resid
-  chunked(a.xm, kO, a.qd, lay[kSO]);
+  if constexpr (kI8) {
+    const int qd = a.qd;
+    chunked([&](int c0, int c1) {
+      if (a.aq != nullptr) {
+        copy_q8_rows(a.aq, a.as, m, qd, c0, c1, X, xstride, qs, kBs);
+      } else {
+        q8_rows([&](int r, int c) {
+          return bf16x4(__ldg(reinterpret_cast<const uint2*>(
+              a.xm + static_cast<size_t>(r) * qd + c)));
+        })(c0, c1);
+      }
+    }, kO, qd, lay[kSO]);
+  } else {
+    chunked(a.xm, kO, a.qd, lay[kSO]);
+  }
   for (int i = tid; i < m * n[kO]; i += kThreads) {
     const int r = i / n[kO], j = i - r * n[kO];
     const size_t at = static_cast<size_t>(r) * h + lo[kO] + j;
-    a.h1[at] = val(red, j, r, a.qd, lay[kSO]) + __bfloat162float(a.resid[at]);
+    float res;
+    if constexpr (kI8) res = __ldg(a.resid32 + at);
+    else res = __bfloat162float(a.resid[at]);
+    a.h1[at] = val(red, j, r, a.qd, lay[kSO]) + res;
   }
   grid.sync();
   if (timed) a.stamps[2] = clock64();
 
-  // stage 2: act = bf16(silu(nh . gate^T) * (nh . up^T)), nh from h1
+  // stage 2: act = silu(nh . gate^T) * (nh . up^T), nh from h1 (K4: bf16)
   norm(a.h1, a.post_w);
   bar_wait(bars + kGateUp, 0);
   dot(slot[kGateUp], 2 * n[kGateUp], h, lay[kSGateUp], 0, h, red, false);
   __syncthreads();
+  // K7 at m > 1: the gated rows of the block's pairs (whole 32-blocks: the
+  // split aligns them) into the activation buffer as f32, then quantized
+  // once, here, into q8_0 rows in device memory, which stage 3 copies
+  // (rebuilding m rows from f32 in every block cost more than the stream);
+  // at m = 1 the f32 row goes to device memory and every block quantizes it
+  float* gated = reinterpret_cast<float*>(X);
   for (int i = tid; i < m * n[kGateUp]; i += kThreads) {
     const int r = i / n[kGateUp], p = i - r * n[kGateUp];
     const float g = val(red, p, r, h, lay[kSGateUp]);
     const float u = val(red, n[kGateUp] + p, r, h, lay[kSGateUp]);
-    a.act[static_cast<size_t>(r) * f + lo[kGateUp] + p] =
-        __float2bfloat16(g / (1.f + expf(-g)) * u);
+    const size_t at = static_cast<size_t>(r) * f + lo[kGateUp] + p;
+    if constexpr (kI8 && kMma) gated[i] = g / (1.f + expf(-g)) * u;
+    else if constexpr (kI8) a.act32[at] = g / (1.f + expf(-g)) * u;
+    else a.act[at] = __float2bfloat16(g / (1.f + expf(-g)) * u);
+  }
+  if constexpr (kI8 && kMma) {
+    const int np = n[kGateUp], c0 = lo[kGateUp];
+    __syncthreads();
+    quant_rows([&](int r, int c) {
+      return *reinterpret_cast<const float4*>(gated + r * np + (c - c0));
+    }, m, c0, c0 + np, reinterpret_cast<unsigned char*>(a.actq) + c0, f,
+       a.acts + (c0 >> 5), 1, f >> 5);
   }
   grid.sync();
   if (timed) a.stamps[3] = clock64();
   late(2);
 
   // stage 3: out = act . down^T + h1
-  chunked(a.act, kDown, f, lay[kSDown]);
+  if constexpr (kI8 && kMma) {
+    chunked([&](int c0, int c1) {
+      copy_q8_rows(a.actq, a.acts, m, f, c0, c1, X, xstride, qs, kBs);
+    }, kDown, f, lay[kSDown]);
+  } else if constexpr (kI8) {
+    const float* act = a.act32;
+    chunked(q8_rows([&, act](int r, int c) {
+      return __ldcg(reinterpret_cast<const float4*>(
+          act + static_cast<size_t>(r) * f + c));
+    }), kDown, f, lay[kSDown]);
+  } else {
+    chunked(a.act, kDown, f, lay[kSDown]);
+  }
   for (int i = tid; i < m * n[kDown]; i += kThreads) {
     const int r = i / n[kDown], j = i - r * n[kDown];
     const size_t at = static_cast<size_t>(r) * h + lo[kDown] + j;
@@ -514,7 +918,7 @@ q8_layer_fused_kernel(Args a) {
         a.qkv[static_cast<size_t>(r) * a.nq + lo[kQkv] + j] =
             val(red, j, r, h, S);
       }
-    } else {
+    } else if constexpr (!kI8) {
       // the unit sums alternate between two buffers, so one __syncthreads
       // a tile both publishes its sums and frees its slot
       for (int t = 0; t < tiles; ++t) {
@@ -543,25 +947,38 @@ q8_layer_fused_kernel(Args a) {
   if (timed) a.stamps[6] = global_ns();
 }
 
-// Co-resident blocks of the kernel of mode `mode` with `smem` bytes of
-// dynamic shared memory on device dev (at most two an SM), cached per
-// (dev, mode, smem): a decode loop at one shape queries once.
-cudaError_t grid_blocks(int dev, int mode, size_t smem, int* blocks) {
+using Kernel = void (*)(Args);
+
+// the kernel of mode `mode` (kUnit, kMmaLo, kMmaHi) under K4's contract or
+// K7's (i8)
+Kernel kernel_of(int mode, bool i8) {
+  static const Kernel kernels[2][3] = {
+      {q8_layer_fused_kernel<kUnit, false>,
+       q8_layer_fused_kernel<kMmaLo, false>,
+       q8_layer_fused_kernel<kMmaHi, false>},
+      {q8_layer_fused_kernel<kUnit, true>,
+       q8_layer_fused_kernel<kMmaLo, true>,
+       q8_layer_fused_kernel<kMmaHi, true>}};
+  return kernels[i8 ? 1 : 0][mode];
+}
+
+// Co-resident blocks of the kernel of mode `mode` and contract i8 with
+// `smem` bytes of dynamic shared memory on device dev (at most two an SM),
+// cached per (dev, kernel, smem): a decode loop at one shape queries once.
+cudaError_t grid_blocks(int dev, int mode, bool i8, size_t smem,
+                        int* blocks) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, size_t>, int> cache;
   static std::map<std::pair<int, int>, size_t> smem_attr;  // opt-in set
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, mode, smem);
+  const int id = mode + (i8 ? 3 : 0);
+  const auto key = std::make_tuple(dev, id, smem);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *blocks = hit->second;
     return cudaSuccess;
   }
-  const void* kernel =
-      mode == kUnit ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kUnit>)
-      : mode == kMmaLo
-          ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaLo>)
-          : reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaHi>);
+  const void* kernel = reinterpret_cast<const void*>(kernel_of(mode, i8));
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t e =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -569,7 +986,7 @@ cudaError_t grid_blocks(int dev, int mode, size_t smem, int* blocks) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // the opt-in only grows, so a larger layout set earlier stays allowed
-  size_t& set = smem_attr[{dev, mode}];
+  size_t& set = smem_attr[{dev, id}];
   if (e == cudaSuccess && smem > 48 * 1024 && smem > set) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -586,6 +1003,37 @@ cudaError_t grid_blocks(int dev, int mode, size_t smem, int* blocks) {
 }
 
 int mode_of(int m) { return m == 1 ? kUnit : m <= 8 ? kMmaLo : kMmaHi; }
+
+// One cooperative launch of `blocks` blocks, refused (never run partially)
+// when the card cannot make them co-resident; the launch's cudaError_t.
+int launch(Args& a, bool i8, int blocks, int smem, void* stream) {
+  const int mode = mode_of(a.m);
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = grid_blocks(dev, mode, i8, smem, &most);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks > most)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel_of(mode, i8)), dim3(blocks),
+      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The co-resident grid at row count m with `smem` bytes of dynamic shared
+// memory (blocks, out through `blocks`, an int; at most two an SM).
+int grid_of(int m, int smem, bool i8, void* blocks) {
+  if (m < 1 || m > 16 || smem < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = grid_blocks(dev, mode_of(m), i8, static_cast<size_t>(smem),
+                    static_cast<int*>(blocks));
+  return static_cast<int>(e);
+}
 
 }  // namespace
 
@@ -623,23 +1071,62 @@ extern "C" int q8_layer_fused(const void* xm, const void* resid,
          static_cast<float*>(out), static_cast<float*>(qkv),
          static_cast<long long*>(stamps), static_cast<const int*>(plan),
          m, qd, h, f, nq, eps};
-  const int mode = mode_of(m);
-  int dev = 0, most = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = grid_blocks(dev, mode, smem, &most);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (blocks > most)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const void* kernel =
-      mode == kUnit ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kUnit>)
-      : mode == kMmaLo
-          ? reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaLo>)
-          : reinterpret_cast<const void*>(q8_layer_fused_kernel<kMmaHi>);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
-                                  smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch(a, false, blocks, smem, stream);
+}
+
+// K7: attn: the merged attention rows [m, qd] in bf16, or null with aq: int8 [m, qd] + as: f32 [m, qd/32] (the rows in
+// q8_0); resid: f32 [m, h]; post_w, next_w: bf16 [h]; o, gate_up, down,
+// next qkv (qq == null: no qkv stage) as K4's; scratch h1: f32 [m, h],
+// act: the gated rows, f32 [m, f] at m = 1, else int8 [m, f] then their
+// f32 scales [m, f/32]; out: f32 [m, h]; qkv: f32 [m, nq]; stamps, plan as
+// K4's (the split of q8_layer_fused_split(..., q8i=True): gate_up in whole
+// 32-pair blocks at m > 1). The same checks and return value as
+// q8_layer_fused.
+extern "C" int q8i_layer_fused(const void* attn, const void* aq,
+                               const void* as, const void* resid,
+                               const void* post_w, const void* next_w,
+                               const void* oq, const void* od, const void* gq,
+                               const void* gd, const void* dq, const void* dd,
+                               const void* qq, const void* qs, void* h1,
+                               void* act, void* out, void* qkv, void* stamps,
+                               const void* plan, int m, int qd, int h, int f,
+                               int nq, float eps, int blocks, int smem,
+                               void* stream) {
+  if (m < 1 || m > 16 || qd % 32 || h % 32 || f % 32 || blocks < 1
+      || smem < 1 || (attn == nullptr) == (aq == nullptr)
+      || (aq != nullptr) != (as != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.xm = static_cast<const __nv_bfloat16*>(attn);
+  a.aq = static_cast<const int8_t*>(aq);
+  a.as = static_cast<const float*>(as);
+  a.resid32 = static_cast<const float*>(resid);
+  a.post_w = static_cast<const __nv_bfloat16*>(post_w);
+  a.next_w = static_cast<const __nv_bfloat16*>(next_w);
+  a.oq = static_cast<const int8_t*>(oq);
+  a.od = static_cast<const float*>(od);
+  a.gq = static_cast<const int8_t*>(gq);
+  a.gd = static_cast<const float*>(gd);
+  a.dq = static_cast<const int8_t*>(dq);
+  a.dd = static_cast<const float*>(dd);
+  a.qq = static_cast<const int8_t*>(qq);
+  a.qs = static_cast<const float*>(qs);
+  a.h1 = static_cast<float*>(h1);
+  a.act32 = static_cast<float*>(act);
+  a.actq = static_cast<int8_t*>(act);
+  a.acts = reinterpret_cast<float*>(static_cast<int8_t*>(act) +
+                                    static_cast<size_t>(m) * f);
+  a.out = static_cast<float*>(out);
+  a.qkv = static_cast<float*>(qkv);
+  a.stamps = static_cast<long long*>(stamps);
+  a.plan = static_cast<const int*>(plan);
+  a.m = m;
+  a.qd = qd;
+  a.h = h;
+  a.f = f;
+  a.nq = nq;
+  a.eps = eps;
+  return launch(a, true, blocks, smem, stream);
 }
 
 // The co-resident grid of K4 at row count m with `smem` bytes of dynamic
@@ -647,12 +1134,10 @@ extern "C" int q8_layer_fused(const void* xm, const void* resid,
 // the wrapper sizes its split from it, and the P2 probe (csrc/q8_probe.cu)
 // runs its walk on the grid K4 launches. Returns a cudaError_t.
 extern "C" int q8_layer_fused_grid(int m, int smem, void* blocks) {
-  if (m < 1 || m > 16 || smem < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = grid_blocks(dev, mode_of(m), static_cast<size_t>(smem),
-                    static_cast<int*>(blocks));
-  return static_cast<int>(e);
+  return grid_of(m, smem, false, blocks);
+}
+
+// K7's co-resident grid, as q8_layer_fused_grid.
+extern "C" int q8i_layer_fused_grid(int m, int smem, void* blocks) {
+  return grid_of(m, smem, true, blocks);
 }

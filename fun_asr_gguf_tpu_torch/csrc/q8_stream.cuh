@@ -1,5 +1,5 @@
 // The streaming q8_0 weight engine for Hopper (sm_90a): K5's GEMV stages
-// and head (q8_decode_all.cu).
+// and head (q8_decode_all.cu), K4's and K7's stages (q8_layer_fused.cu).
 //
 // A block's share of a q8_0 matrix is a slab of whole rows: a contiguous
 // row range (gate_up: a range of gate rows and the same range of up rows),
@@ -244,6 +244,80 @@ __device__ __forceinline__ void slab_dot(const unsigned char* slot, int R,
                                          int k, const float* x, float* red) {
   if (k % kChunk == 0) slab_dot_units<true>(slot, R, k, x, red);
   else slab_dot_units<false>(slot, R, k, x, red);
+}
+
+// The int8-dot contract (K7, q8_layer_fused.cu): the weights against a
+// q8_0 activation row, llama.cpp's q8_0 x q8_0 vec_dot as q8_dot.cuh
+// states it: an exact int32 partial per 32-block, then * d_w * d_x in f32,
+// summed in f32. No dequant: four MACs an instruction.
+
+// the exact f32 of an int32 |z| < 2^22 (a block's partial is at most 32 x
+// 128 x 127): z under the exponent of 1.5 x 2^23 (one IADD), less 1.5 x
+// 2^23 (one FADD), no conversion instruction
+__device__ __forceinline__ float i2f_exact(int z) {
+  return __int_as_float(z + 0x4B400000) - 12582912.f;
+}
+
+// Lane share of unit (row r, columns [c - 16 lane, + 512)) of an int8 slab
+// against the q8_0 row xq (int8 [k]) / xs (f32 [k / 32]) in shared memory:
+// the lane's 16 bytes at c by four dp4a, its 32-block's exact partial with
+// its neighbour's (lanes 2i and 2i + 1 hold one block), then, on the even
+// lane, partial * d_w * d_x. kFull: k % 512 == 0; else a lane past k adds 0.
+template <bool kFull>
+__device__ __forceinline__ float unit_dot_i8(const unsigned char* slot,
+                                             const float* d, int r, int k,
+                                             int c, const int8_t* xq,
+                                             const float* xs) {
+  const bool in = kFull || c < k;
+  int z = 0;
+  if (in) {
+    const int4 w = *reinterpret_cast<const int4*>(
+        slot + static_cast<size_t>(r) * k + c);
+    const int4 x = *reinterpret_cast<const int4*>(xq + c);
+    z = __dp4a(w.x, x.x, 0);
+    z = __dp4a(w.y, x.y, z);
+    z = __dp4a(w.z, x.z, z);
+    z = __dp4a(w.w, x.w, z);
+  }
+  z += __shfl_xor_sync(0xffffffffu, z, 1);
+  if (!in || (threadIdx.x & 1)) return 0.f;
+  const int b = c >> 5;
+  return i2f_exact(z) * d[r * (k >> 5) + b] * xs[b];
+}
+
+// red[u] = the warp sum of unit u of the R-row int8 slab at `slot` against
+// the q8_0 row (xq, xs), every unit of the slab: slab_dot's units and
+// order, so repeated calls are equal bit for bit.
+template <bool kFull>
+__device__ __forceinline__ void slab_dot_i8_units(const unsigned char* slot,
+                                                  int R, int k,
+                                                  const int8_t* xq,
+                                                  const float* xs,
+                                                  float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nc = units_per_row(k), units = R * nc;
+  const float* d = reinterpret_cast<const float*>(
+      slot + static_cast<size_t>(R) * k);
+  for (int u = warp; u < units; u += 2 * kWarps) {
+    const int u2 = u + kWarps < units ? u + kWarps : u;
+    const int r1 = u / nc, r2 = u2 / nc;
+    const float v1 = unit_dot_i8<kFull>(
+        slot, d, r1, k, (u - r1 * nc) * kChunk + 16 * lane, xq, xs);
+    const float v2 = unit_dot_i8<kFull>(
+        slot, d, r2, k, (u2 - r2 * nc) * kChunk + 16 * lane, xq, xs);
+    const float s1 = warp_sum(v1), s2 = warp_sum(v2);
+    if (lane == 0) {
+      red[u] = s1;
+      red[u2] = s2;
+    }
+  }
+}
+
+__device__ __forceinline__ void slab_dot_i8(const unsigned char* slot, int R,
+                                            int k, const int8_t* xq,
+                                            const float* xs, float* red) {
+  if (k % kChunk == 0) slab_dot_i8_units<true>(slot, R, k, xq, xs, red);
+  else slab_dot_i8_units<false>(slot, R, k, xq, xs, red);
 }
 
 // row r's dot product: its units' sums in order (after a __syncthreads)

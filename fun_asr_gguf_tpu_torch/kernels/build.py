@@ -42,7 +42,7 @@ SIGNATURES = {
     "q8_layer_fused": [_P] * 18 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "q8_decode_all": [_P] * 33 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "q8i_layer_fused": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "q8i_layer_fused": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "flash_decode_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "flash_decode_i8": [_P] * 9 + [_I] * 7 + [_P],
     "split_kv_probe": [_P] * 9 + [_I] * 4 + [_F, _P],
@@ -50,6 +50,7 @@ SIGNATURES = {
     "q8_stream_gemv": [_P] * 10 + [_I] * 10 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "q8_layer_fused_grid": [_I, _I, _P],
+    "q8i_layer_fused_grid": [_I, _I, _P],
     "q8_decode_all_grid": [_I] * 6 + [_P],
     "q8_probe_p2": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "probe_reshape": [_P] * 2 + [_I] * 4 + [_P],
@@ -155,7 +156,8 @@ def check(code: int, name: str):
 
 def grid_blocks(name: str, *args) -> int:
     """The co-resident grid a cooperative kernel launches, from its C
-    query ``name`` (``q8_layer_fused_grid``, ``q8_decode_all_grid``) on the
+    query ``name`` (``q8_layer_fused_grid``, ``q8i_layer_fused_grid``,
+    ``q8_decode_all_grid``) on the
     current device."""
     n = ctypes.c_int(0)
     check(getattr(lib(), name)(*args, ctypes.c_void_p(ctypes.addressof(n))),

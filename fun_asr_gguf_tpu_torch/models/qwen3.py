@@ -60,8 +60,7 @@ from ..ops.flash_decode import flash_decode_attention
 from ..ops.quant_matmul import (Int8Weight, Q8DotWeight, Q8Weight, layer,
                                 matmul_any, q8_decode_all_fused,
                                 q8_layer_head_fused, q8_mlp_fused,
-                                q8_mlp_qkv_fused, q8i_layer_fused,
-                                quantize_act_q8)
+                                q8_mlp_qkv_fused, q8i_layer_fused_rows)
 from .common import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -450,20 +449,18 @@ def _fused_mlp_call(heads, x, lp, cfg):
     return out.reshape(b, t, h).to(x.dtype)
 
 
-def _q8i_layer_call(heads, x_col, lp, lp_next, cfg):
+def _q8i_layer_call(heads, x_rows, lp, lp_next, cfg):
     """K7 for layer ``lp`` (JAX ``_q8i_layer_call`` :1211): the merged
-    heads quantized to q8_0 in f32, then the chain; with ``lp_next`` also
-    that layer's input norm and qkv. ``x_col`` [H, B*T] f32 is the
-    residual column → (the new column, qkv column [n_qkv, B*T] | None)."""
+    heads quantized to q8_0 (inside the kernel on CUDA), then the chain;
+    with ``lp_next`` also that layer's input norm and qkv. ``x_rows``
+    [B*T, H] f32 is the residual → (the new residual rows, qkv rows
+    [B*T, n_qkv] | None)."""
     b, t = heads.shape[0], heads.shape[2]
-    aq, as_ = quantize_act_q8(
-        _merge_heads(heads, cfg).reshape(b * t, -1).to(torch.float32))
     nxt = lp_next is not None
-    return q8i_layer_fused(
-        aq.t(), as_.t(), x_col, lp["post_ln"],
+    return q8i_layer_fused_rows(
+        _merge_heads(heads, cfg).reshape(b * t, -1), x_rows, lp["post_ln"],
         lp_next["input_ln"] if nxt else None, lp["o_w"], lp["gate_up_w"],
-        lp["down_w"], lp_next["qkv_w"] if nxt else None, cfg.rms_eps,
-        with_qkv=nxt)
+        lp["down_w"], lp_next["qkv_w"] if nxt else None, cfg.rms_eps)
 
 
 def _gqa_scores(q, k, cfg):
@@ -593,12 +590,11 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
     if "q8i_fused" in params:
         # JAX's megacall v3 branch: layer l's K7 call also emits layer
         # l+1's qkv, so a layer costs K2 + K7; layer 0's qkv and the head
-        # are the only K6 launches. The residual stays an f32 column
-        # [H, B*T] (a transposed view of [B*T, H] rows: no copy on CUDA)
+        # are the only K6 launches. The residual stays f32 rows [B*T, H]
         b, t, h = x.shape
         lp = _layer_params(layers, 0)
         qkv = _proj(rms_norm(x, lp["input_ln"], cfg.rms_eps), lp["qkv_w"])
-        x_col = x.reshape(b * t, h).to(torch.float32).t()
+        x_rows = x.reshape(b * t, h).to(torch.float32)
         for l in range(cfg.n_layers):
             q, k, v = _qkv_post(qkv.to(x.dtype), lp, cfg, cos, sin)
             _kv_write(kv.k, l, index, k)
@@ -606,11 +602,12 @@ def _layer_stack(params, kv: KVCache, x, cos, sin, bias, index, cfg):
             heads = _attend_cache(q, kv, l, bias, cfg)
             lp_next = (_layer_params(layers, l + 1)
                        if l + 1 < cfg.n_layers else None)
-            x_col, qkv_col = _q8i_layer_call(heads, x_col, lp, lp_next, cfg)
+            x_rows, qkv_rows = _q8i_layer_call(heads, x_rows, lp, lp_next,
+                                               cfg)
             if lp_next is not None:
-                qkv = qkv_col.t().reshape(b, t, -1)
+                qkv = qkv_rows.reshape(b, t, -1)
                 lp = lp_next
-        x = x_col.t().reshape(b, t, h).to(x.dtype)
+        x = x_rows.reshape(b, t, h).to(x.dtype)
     elif "q8_fused" in params:
         # JAX's megacall v2 branch: layer l's K4 call also emits layer
         # l+1's qkv, so a layer costs K2 + K4; layer 0's qkv and the head

@@ -9,10 +9,10 @@ Counterpart of ``fun_asr_gguf_tpu/ops/quant_matmul.py`` (``quant_matmul``
 :953, ``quantize_act_q8`` :1340, ``q8dot_matmul`` :1416,
 ``q8i_layer_fused`` :1586, ``q8_decode_all_fused`` :1970 and ``matmul_any``
 :1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1),
-``csrc/q8_layer_fused.cu`` (K4 and K4c), ``csrc/q8_decode_all.cu`` (K5),
-``csrc/q8dot_matmul.cu`` (K6) and ``csrc/q8i_layer_fused.cu`` (K7); their
-source notes say what bounds them on the H100 and what their designs do
-about it.
+``csrc/q8_layer_fused.cu`` (K4, K4c and K7: one kernel templated on the
+dot contract), ``csrc/q8_decode_all.cu`` (K5) and ``csrc/q8dot_matmul.cu``
+(K6); their source notes say what bounds them on the H100 and what their
+designs do about it.
 
 Weights stay in the GGUF q8_0 form: ``Q8Weight(q=[..., n, k] int8,
 d=[..., n, k/32] f32)`` in NATURAL k order — the TPU's block-permuted lane
@@ -281,13 +281,17 @@ def _r16(n: int) -> int:
 
 def q8_layer_fused_split(h: int, qd: int, ffn: int, nq: int, m: int,
                          blocks: int, head: bool = False,
-                         per_sm: int = None) -> K4Split:
+                         per_sm: int = None, q8i: bool = False) -> K4Split:
     """K4's split of o, gate_up (gate row j with up row j), down and the
     qkv (K4c: the head) over ``blocks`` blocks, contiguous ranges of whole
     rows (counts differ by at most one), and the shared memory layout at
     ``m`` activation rows: the activation rows (m = 1: one f32 row; else
-    bf16 rows of ``xcols`` columns, 16 bytes of padding a row), the unit
-    sums, the mbarriers, and one slot per slab. The qkv slab has its own
+    bf16 rows of ``xcols`` columns, 16 bytes of padding a row; ``q8i``, K7:
+    q8_0 rows, int8 and their f32 block scales, see
+    :func:`k7_activation_bytes`), the unit sums, the mbarriers, and one slot
+    per slab. K7's gate_up ranges at m > 1 are whole blocks of 32 pairs
+    (block counts differ by at most one): a block quantizes the gated rows
+    it produces, once, for every block's down stage. The qkv slab has its own
     slot where the block's budget allows (requested at the start), else it
     shares gate_up's (requested after gate_up's barrier); K4c's head ring
     starts at gate_up's slot. Where even that
@@ -296,13 +300,18 @@ def q8_layer_fused_split(h: int, qd: int, ffn: int, nq: int, m: int,
     function of the widths, m and the grid."""
     if not 1 <= m <= FUSED_MAX_ROWS:
         raise ValueError(f"K4 takes 1..{FUSED_MAX_ROWS} rows, got m={m}")
+    if q8i and head:
+        raise ValueError("K7 has no head form")
     per_sm = per_sm or (2 if m == 1 else 1)
     mma = m > 1
     budget = min(K4_SMEM_BLOCK, K4_SMEM_SM // per_sm - K4_SMEM_RESERVED)
     rows = (h, ffn, h, nq)
     widths = (qd, h, ffn, h)
     b = torch.arange(blocks + 1, dtype=torch.int64)
-    starts = torch.stack([b * n // blocks for n in rows]).to(torch.int32)
+    starts = torch.stack([b * n // blocks for n in rows])
+    if q8i and m > 1:
+        starts[1] = b * (ffn // BLOCK) // blocks * BLOCK
+    starts = starts.to(torch.int32)
     most = (starts[:, 1:] - starts[:, :-1]).amax(1).tolist()
     slab_rows = [most[0], 2 * most[1], most[2], most[3]]
     size = [mega_slab_bytes(r, k) for r, k in zip(slab_rows, widths)]
@@ -327,8 +336,13 @@ def q8_layer_fused_split(h: int, qd: int, ffn: int, nq: int, m: int,
                  range(-(-kmax // span) * span, -(-h // span) * span - 1,
                        -span))
     for xcols in xcols_all:
-        xstride = 2 * xcols + 16 if mma else 4 * kmax
-        x_bytes = m * xstride if mma else 4 * kmax
+        if q8i:
+            xstride, x_bytes = k7_activation_bytes(m, xcols)
+            if m > 1 and 4 * m * most[1] > x_bytes:   # stage 2's gated rows
+                continue
+        else:
+            xstride = 2 * xcols + 16 if mma else 4 * kmax
+            x_bytes = m * xstride if mma else 4 * kmax
         base = _r16(x_bytes) + _r16(red) + _r16(K4_MISC)
         if head:
             tiles = min(K4_MAX_HEAD_TILES, (budget - base - _r16(size[0])
@@ -361,26 +375,38 @@ def q8_layer_fused_split(h: int, qd: int, ffn: int, nq: int, m: int,
                      f"nq={nq}, m={m} on {blocks} blocks")
 
 
+def k7_activation_bytes(m: int, xcols: int):
+    """K7's q8_0 activation rows in shared memory: (bytes a row, bytes in
+    all). m = 1: one int8 row of ``xcols`` columns, then its f32 scales;
+    m > 1: m int8 rows of ``xcols`` columns padded by 32 bytes (the mma
+    form's 8-byte fragment loads are then conflict-free), then the scales
+    block-major, 8 rows a block at m <= 8, 16 above (the mma's row tiles)."""
+    if m == 1:
+        return 0, xcols + xcols // 8
+    return xcols + 32, m * (xcols + 32) + (xcols // 32) * 4 * (
+        8 if m <= 8 else 16)
+
+
 _k4_plans = {}
 
 
-def _k4_plan(dev, h, qd, ffn, nq, m, head):
-    """K4's split on the card's co-resident grid (two blocks an SM at m =
-    1 where registers allow, else one) and its table on the card, cached
-    per (device, widths, head, m)."""
+def _k4_plan(dev, h, qd, ffn, nq, m, head, q8i=False):
+    """K4's (``q8i``: K7's) split on the card's co-resident grid (two
+    blocks an SM at m = 1 where registers allow, else one) and its table on
+    the card, cached per (device, widths, head, m, contract)."""
     from ..kernels import build
-    key = (dev.index, h, qd, ffn, nq, head, m)
+    key = (dev.index, h, qd, ffn, nq, head, m, q8i)
     plan = _k4_plans.get(key)
     if plan is None:
         sms = build.sm_count(dev)
+        query = "q8i_layer_fused_grid" if q8i else "q8_layer_fused_grid"
         for per_sm in ((2, 1) if m == 1 else (1,)):
             split = q8_layer_fused_split(h, qd, ffn, nq, m, per_sm * sms,
-                                         head, per_sm)
-            if build.grid_blocks("q8_layer_fused_grid", m,
-                                 split.smem) >= split.blocks:
+                                         head, per_sm, q8i)
+            if build.grid_blocks(query, m, split.smem) >= split.blocks:
                 break
         else:
-            raise RuntimeError(f"q8_layer_fused: no co-resident grid of one "
+            raise RuntimeError(f"{query}: no co-resident grid of one "
                                f"block an SM at h={h}, m={m}")
         plan = _k4_plans[key] = (split, split.table().to(dev))
     return plan
@@ -410,16 +436,22 @@ def q8_layer_fused_stage_ms(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
     stamps = torch.zeros(K4_STAMPS, dtype=torch.int64, device=xm.device)
     out = _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
                         next_qkv_w, eps, head=head, stamps=stamps)
-    st = stamps.cpu()
     names = ["o", "gate_up", "down"]
     if next_qkv_w is not None:
         names.append("head" if head else "qkv")
+    return _stages(stamps, names), out
+
+
+def _stages(stamps, names):
+    """The stage timer's stamps (K4's and K7's) → ms of each stage, block
+    0's clock cycles scaled to its span on the global timer, and ``span``."""
+    st = stamps.cpu()
     span_ns = int(st[-1] - st[0])
     cycles = st[1:2 + len(names)].diff().double()
     ms = cycles * (span_ns / 1e6 / float(cycles.sum()))
     stages = dict(zip(names, ms.tolist()))
     stages["span"] = span_ns / 1e6
-    return stages, out
+    return stages
 
 
 def _launch_fused(xm, resid, post_w, next_in_w, o_w, gu_w, down_w,
@@ -928,37 +960,100 @@ def q8i_layer_fused(attn_q, attn_s, resid_col, post_w, next_in_w, o_w,
                     with_qkv: bool = True):
     """One layer's post-attention half under the int8-dot contract (+ the
     next layer's input norm and qkv when ``with_qkv``), in one launch on
-    CUDA (K7, JAX ``q8i_layer_fused`` :1586). JAX's layout: ``attn_q [qd,
-    m]`` int8 / ``attn_s [qd/32, m]`` f32 the merged attention output in
-    q8_0 columns, ``resid_col [h, m]`` f32, ``post_w`` / ``next_in_w [h]``;
-    2-D :class:`Q8DotWeight` s or layer views. Returns ``(out_col [h, m]
-    f32, qkv_col [nq, m] f32 | None)``. On CUDA the columns may be
-    transposed views of row-major [m, ·] tensors, as the decode passes
-    them, and the results are such views: no copy either way. See
-    :func:`q8i_layer_fused_plain`."""
+    CUDA (K7, JAX ``q8i_layer_fused`` :1586), with JAX's signature:
+    ``attn_q [qd, m]`` int8 / ``attn_s [qd/32, m]`` f32 the merged
+    attention output in q8_0 columns, ``resid_col [h, m]`` f32, ``post_w``
+    / ``next_in_w [h]``; 2-D :class:`Q8DotWeight` s or layer views. Returns
+    ``(out_col [h, m] f32, qkv_col [nq, m] f32 | None)``. On CUDA the
+    columns may be transposed views of row-major [m, ·] tensors (no copy)
+    and the results are such views. The decoder calls
+    :func:`q8i_layer_fused_rows`, the same kernel with the quantization of
+    the attention rows folded in. See :func:`q8i_layer_fused_plain`."""
     if attn_q.device.type == "cpu":
         return q8i_layer_fused_plain(attn_q, attn_s, resid_col, post_w,
                                      next_in_w, o_w, gu_w, down_w,
                                      next_qkv_w, eps, with_qkv)
-    return _launch_q8i(attn_q, attn_s, resid_col, post_w, next_in_w, o_w,
-                       gu_w, down_w, next_qkv_w, eps, with_qkv)
-
-
-def _launch_q8i(attn_q, attn_s, resid_col, post_w, next_in_w, o_w, gu_w,
-                down_w, next_qkv_w, eps, with_qkv):
-    global q8i_launches
-    from ..kernels import build
     if with_qkv != (next_qkv_w is not None) or with_qkv != (
             next_in_w is not None):
         raise ValueError("q8i_layer_fused: with_qkv needs next_in_w and "
                          "next_qkv_w, and without it both are None")
-    if attn_q.dim() != 2 or resid_col.dim() != 2:
-        raise ValueError(f"q8i_layer_fused takes attn_q [qd, m] and "
-                         f"resid_col [h, m], got {tuple(attn_q.shape)} and "
+    if attn_q.dim() != 2 or attn_s.dim() != 2 or resid_col.dim() != 2:
+        raise ValueError(f"q8i_layer_fused takes attn_q [qd, m], attn_s "
+                         f"[qd/32, m] and resid_col [h, m], got "
+                         f"{tuple(attn_q.shape)}, {tuple(attn_s.shape)} and "
                          f"{tuple(resid_col.shape)}")
-    qd, m = attn_q.shape
-    h = resid_col.shape[0]
+    if attn_q.dtype != torch.int8 or attn_s.dtype != torch.float32:
+        raise TypeError(f"q8i_layer_fused takes int8 attn_q and f32 attn_s, "
+                        f"got {attn_q.dtype}, {attn_s.dtype}")
+    out, qkv = _launch_q8i((attn_q.t().contiguous(), attn_s.t().contiguous()),
+                           resid_col.t().contiguous(), post_w, next_in_w,
+                           o_w, gu_w, down_w, next_qkv_w, eps)
+    return out.t(), (qkv.t() if with_qkv else None)
+
+
+def q8i_layer_fused_rows_plain(attn, resid, post_w, next_in_w, o_w, gu_w,
+                               down_w, next_qkv_w, eps: float):
+    """Plain version of :func:`q8i_layer_fused_rows`: :func:`quantize_act_q8`
+    of the attention rows, then :func:`q8i_layer_fused_plain`, in rows."""
+    aq, as_ = quantize_act_q8(attn)
+    out, qkv = q8i_layer_fused_plain(
+        aq.t(), as_.t(), resid.to(torch.float32).t(), post_w, next_in_w,
+        o_w, gu_w, down_w, next_qkv_w, eps, next_qkv_w is not None)
+    return out.t(), (None if qkv is None else qkv.t())
+
+
+def q8i_layer_fused_rows(attn, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                         next_qkv_w, eps: float):
+    """K7 as the decoder calls it, in rows: ``attn [m, qd]`` the merged
+    attention output (on CUDA bf16, the dtype K2 returns; the kernel
+    quantizes it to q8_0 with :func:`quantize_act_q8`'s arithmetic; on the
+    CPU any float dtype), ``resid [m, h]``
+    f32; ``next_in_w`` / ``next_qkv_w`` None for the last layer. Returns
+    ``(out [m, h] f32, qkv [m, nq] f32 | None)``, one launch on CUDA,
+    outputs bit-equal to :func:`q8i_layer_fused` on the quantized rows. See
+    :func:`q8i_layer_fused_rows_plain`."""
+    if attn.device.type == "cpu":
+        return q8i_layer_fused_rows_plain(attn, resid, post_w, next_in_w,
+                                          o_w, gu_w, down_w, next_qkv_w, eps)
+    if (next_in_w is None) != (next_qkv_w is None):
+        raise ValueError("q8i_layer_fused_rows: the qkv stage needs both "
+                         "next_in_w and next_qkv_w")
+    return _launch_q8i(attn, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                       next_qkv_w, eps)
+
+
+def q8i_layer_fused_stage_ms(attn, resid, post_w, next_in_w, o_w, gu_w,
+                             down_w, next_qkv_w, eps):
+    """K7's time by stage, read by its stage timer in one launch on CUDA
+    (the arguments of :func:`q8i_layer_fused_rows`), as
+    :func:`q8_layer_fused_stage_ms` reads K4's: ms of ``o``, ``gate_up``,
+    ``down`` and ``qkv`` (with the qkv stage), each to its grid barrier as
+    block 0 sees it, and ``span``. Returns (that dict, the launch's
+    outputs)."""
+    stamps = torch.zeros(K4_STAMPS, dtype=torch.int64, device=attn.device)
+    out = _launch_q8i(attn, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                      next_qkv_w, eps, stamps=stamps)
+    names = ["o", "gate_up", "down"] + (["qkv"] if next_qkv_w is not None
+                                        else [])
+    return _stages(stamps, names), out
+
+
+def _launch_q8i(attn, resid, post_w, next_in_w, o_w, gu_w, down_w,
+                next_qkv_w, eps, stamps=None):
+    """K7's launch. ``attn``: the attention rows [m, qd] in bf16, or
+    the pair (aq [m, qd] int8, as [m, qd/32] f32) of rows in q8_0."""
+    global q8i_launches
+    from ..kernels import build
+    quantized = isinstance(attn, tuple)
+    rows = attn[0] if quantized else attn
+    if rows.dim() != 2 or resid.dim() != 2:
+        raise ValueError(f"q8i_layer_fused takes attention rows [m, qd] and "
+                         f"resid [m, h], got {tuple(rows.shape)} and "
+                         f"{tuple(resid.shape)}")
+    m, qd = rows.shape
+    h = resid.shape[1]
     f = down_w.q.shape[-1]
+    with_qkv = next_qkv_w is not None
     nq = next_qkv_w.q.shape[0] if with_qkv else 0
     if not 1 <= m <= Q8DOT_MAX_ROWS:
         raise ValueError(f"q8i_layer_fused takes 1..{Q8DOT_MAX_ROWS} rows, "
@@ -967,57 +1062,67 @@ def _launch_q8i(attn_q, attn_s, resid_col, post_w, next_in_w, o_w, gu_w,
     if with_qkv:
         weights.append((next_qkv_w, (nq, h)))
     norms = [post_w] + ([next_in_w] if with_qkv else [])
-    if (tuple(attn_s.shape) != (qd // BLOCK, m)
-            or tuple(resid_col.shape) != (h, m)
+    acts = list(attn) if quantized else [attn]
+    if ((quantized and tuple(attn[1].shape) != (m, qd // BLOCK))
+            or tuple(resid.shape) != (m, h)
             or any(tuple(w.q.shape) != s
                    or tuple(w.d.shape) != (s[0], s[1] // BLOCK)
                    for w, s in weights)
             or any(tuple(n.shape) != (h,) for n in norms)
             or qd % BLOCK or h % BLOCK or f % BLOCK):
         raise ValueError(
-            f"q8i_layer_fused shapes: attn_q {tuple(attn_q.shape)}, attn_s "
-            f"{tuple(attn_s.shape)}, resid_col {tuple(resid_col.shape)}, "
-            f"norms {[tuple(n.shape) for n in norms]}, weights "
+            f"q8i_layer_fused shapes: attention {[tuple(a.shape) for a in acts]}"
+            f", resid {tuple(resid.shape)}, norms "
+            f"{[tuple(n.shape) for n in norms]}, weights "
             f"{[(tuple(w.q.shape), tuple(w.d.shape)) for w, _ in weights]}")
-    if (attn_q.dtype != torch.int8 or attn_s.dtype != torch.float32
-            or resid_col.dtype != torch.float32):
-        raise TypeError(f"q8i_layer_fused takes int8 attn_q and f32 attn_s "
-                        f"and resid_col, got {attn_q.dtype}, {attn_s.dtype}, "
-                        f"{resid_col.dtype}")
+    if quantized:
+        if attn[0].dtype != torch.int8 or attn[1].dtype != torch.float32:
+            raise TypeError(f"q8i_layer_fused takes int8 rows and f32 "
+                            f"scales, got {attn[0].dtype}, {attn[1].dtype}")
+    elif attn.dtype != torch.bfloat16:
+        raise TypeError(f"q8i_layer_fused takes bf16 attention rows, got "
+                        f"{attn.dtype}")
+    if resid.dtype != torch.float32:
+        raise TypeError(f"q8i_layer_fused takes an f32 residual, got "
+                        f"{resid.dtype}")
     if any(n.dtype != torch.bfloat16 for n in norms):
         raise TypeError(f"q8i_layer_fused kernel takes bf16 norm weights, "
                         f"got {[n.dtype for n in norms]}")
-    dev = attn_q.device
+    dev = rows.device
     _check_q8([w for w, _ in weights], dev, "q8i_layer_fused")
-    rows = [attn_q.t().contiguous(), attn_s.t().contiguous(),
-            resid_col.t().contiguous()]       # no copy for views of rows
-    tensors = rows + norms
+    tensors = acts + [resid] + norms
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("q8i_layer_fused: all inputs must be on one CUDA "
                          "device")
-    if not all(n.is_contiguous() for n in norms):
-        raise ValueError("q8i_layer_fused takes contiguous norm weights")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q8i_layer_fused takes contiguous rows and norm "
+                         "weights")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("q8i_layer_fused needs 16-byte aligned inputs")
-    # scratch h1 [m, h] and act [m, f], out [m, h] and qkv [m, nq]: f32,
-    # every part a multiple of 32 elements, so each starts 16-byte aligned
-    buf = torch.empty(m * (2 * h + f + nq), dtype=torch.float32, device=dev)
-    cols = (h, f, h, nq)
-    h1, act, out, qkv = (t.view(m, c) for t, c in zip(
+    split, table = _k4_plan(dev, h, qd, f, nq, m, False, q8i=True)
+    # one scratch allocation of f32 words: h1 [m, h], out [m, h], qkv
+    # [m, nq], the gated rows (m = 1: f32 [m, f]; else int8 [m, f], f / 4
+    # words a row, then f32 scales [m, f/32]); every part a multiple of 8
+    # words (16-byte aligned)
+    cols = (h, h, nq, f if m == 1 else f // 4 + f // BLOCK)
+    buf = torch.empty(m * sum(cols), dtype=torch.float32, device=dev)
+    h1, out, qkv, act = (t.view(m, c) for t, c in zip(
         torch.split(buf, [m * c for c in cols]), cols))
     null = build.ctypes.c_void_p(None)
     code = build.lib().q8i_layer_fused(
-        *(build.ptr(t) for t in rows), build.ptr(post_w),
+        null if quantized else build.ptr(attn),
+        *((build.ptr(a) for a in attn) if quantized else (null, null)),
+        build.ptr(resid), build.ptr(post_w),
         build.ptr(next_in_w) if with_qkv else null,
         *(build.ptr(a) for w, _ in weights[:3] for a in w),
         build.ptr(next_qkv_w.q) if with_qkv else null,
         build.ptr(next_qkv_w.d) if with_qkv else null,
         build.ptr(h1), build.ptr(act), build.ptr(out), build.ptr(qkv),
-        m, qd, h, f, nq, float(eps),
-        build.stream_ptr(dev))
+        null if stamps is None else build.ptr(stamps), build.ptr(table),
+        m, qd, h, f, nq, float(eps), split.blocks, split.smem, build.stream_ptr(dev))
     build.check(code, "q8i_layer_fused")
     q8i_launches += 1
-    return out.t(), (qkv.t() if with_qkv else None)
+    return out, (qkv if with_qkv else None)
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:

@@ -711,47 +711,115 @@ def test_q8dot_matmul_kernel_refuses_what_it_does_not_take(dev):
         tqm.q8dot_matmul(x, tqm.Q8DotWeight(w.q.cpu(), w.d.cpu()))
 
 
-def _q8i_chain(dev, m, seed, layers=None):
-    """One K7 call's inputs as the decode passes them: q8_0 columns and the
-    residual column as transposed views of row-major tensors."""
+def _q8i_chain(dev, m, seed, layers=None, widths=(QD, H, F, NQ),
+               d_range=(1e-3, 3e-3)):
+    """One K7 call's inputs as JAX's signature takes them: q8_0 columns
+    and the residual column as transposed views of row-major tensors; the
+    weights of the layer (with ``layers``: views of stacked tensors)."""
+    qd, h, f, nq = widths
     g = torch.Generator(device=dev).manual_seed(seed)
-    aq, as_ = tqm.quantize_act_q8(torch.randn(m, QD, generator=g,
+    aq, as_ = tqm.quantize_act_q8(torch.randn(m, qd, generator=g,
                                               device=dev))
-    resid = torch.randn(m, H, generator=g, device=dev)
+    resid = torch.randn(m, h, generator=g, device=dev)
 
     def q8(n, k, s):
-        w = _q8dot(dev, n, k, seed=seed * 8 + s, layers=layers)
+        gw = torch.Generator(device=dev).manual_seed(seed * 8 + s)
+        shape = (layers, n, k) if layers else (n, k)
+        w = tqm.Q8DotWeight(
+            torch.randint(-127, 128, shape, generator=gw, device=dev,
+                          dtype=torch.int8),
+            (torch.rand(*shape[:-1], k // 32, generator=gw, device=dev)
+             * (d_range[1] - d_range[0]) + d_range[0]).half().float())
         return tqm.layer(w, 1) if layers else w
 
     def norm_w():
-        return (1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(
+        return (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(
             torch.bfloat16)
 
-    return (aq.t(), as_.t(), resid.t(), norm_w(), norm_w(), q8(H, QD, 1),
-            q8(2 * F, H, 2), q8(H, F, 3), q8(NQ, H, 4))
+    return (aq.t(), as_.t(), resid.t(), norm_w(), norm_w(), q8(h, qd, 1),
+            q8(2 * f, h, 2), q8(h, f, 3), q8(nq, h, 4))
+
+
+def _q8i_rows(dev, m, seed, **kw):
+    """The decoder's K7 inputs: the merged attention rows [m, qd] in bf16
+    (unquantized, as K2 returns them), the f32 residual rows, the norms and
+    weights of ``_q8i_chain``."""
+    args = _q8i_chain(dev, m, seed, **kw)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    attn = torch.randn(m, args[0].shape[0], generator=g, device=dev).to(
+        torch.bfloat16)
+    return (attn, args[2].t(), *args[3:])
+
+
+def _last(args):
+    """The last layer's form of a row-entry argument list (no qkv stage)."""
+    return (*args[:3], None, *args[4:7], None)
 
 
 # K7: the same integer partials and f32 intermediates; f32 sums in another
-# order and rsqrtf against the plain version's 1/sqrt can flip an isolated
-# int8 value at a .5 boundary of a quantized row, as K4's bf16 ulps flip
+# order and the kernel's IEEE 1/sqrt against the plain version's
+# torch.rsqrt can flip an isolated int8 value at a .5 boundary of a
+# quantized row, as K4's bf16 ulps flip
 K7_TOL = 5e-3
 
 
-@pytest.mark.parametrize("m", [1, 2, 9, 16])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 9, 16])
 def test_q8i_layer_fused_kernel_matches_plain(dev, m):
-    args = _q8i_chain(dev, m, seed=m)
+    """Both entries and both forms: the decoder's (bf16 attention rows,
+    quantized in the kernel) and JAX's (q8_0 columns)."""
+    args = _q8i_rows(dev, m, seed=m)
     before = tqm.q8i_launches
-    out, qkv = tqm.q8i_layer_fused(*args, 1e-6)
-    last, none = tqm.q8i_layer_fused(*args[:4], None, *args[5:8], None,
-                                     1e-6, with_qkv=False)
+    out, qkv = tqm.q8i_layer_fused_rows(*args, 1e-6)
+    last, none = tqm.q8i_layer_fused_rows(*_last(args), 1e-6)
     torch.cuda.synchronize()
     assert tqm.q8i_launches == before + 2 and none is None
-    ref_out, ref_qkv = tqm.q8i_layer_fused_plain(*args, 1e-6)
-    assert out.shape == (H, m) and qkv.shape == (NQ, m)
-    assert out.t().is_contiguous()        # a view of [m, H] rows
+    ref_out, ref_qkv = tqm.q8i_layer_fused_rows_plain(*args, 1e-6)
+    assert out.shape == (m, H) and qkv.shape == (m, NQ)
     assert _rel_err(out, ref_out) < K7_TOL
     assert _rel_err(qkv, ref_qkv) < K7_TOL
     assert _rel_err(last, ref_out) < K7_TOL
+    cols = _q8i_chain(dev, m, seed=m)
+    got = tqm.q8i_layer_fused(*cols, 1e-6)
+    got_last = tqm.q8i_layer_fused(*cols[:4], None, *cols[5:8], None, 1e-6,
+                                   with_qkv=False)
+    ref = tqm.q8i_layer_fused_plain(*cols, 1e-6)
+    assert got[0].shape == (H, m) and got[1].shape == (NQ, m)
+    assert got[0].t().is_contiguous()        # a view of [m, H] rows
+    assert got_last[1] is None
+    assert _rel_err(got[0], ref[0]) < K7_TOL
+    assert _rel_err(got[1], ref[1]) < K7_TOL
+    assert _rel_err(got_last[0], ref[0]) < K7_TOL
+
+
+@pytest.mark.parametrize("m", [1, 2, 9, 16])
+def test_q8i_layer_fused_entries_are_bit_equal(dev, m):
+    """The kernel's quantization of the attention rows is
+    ``quantize_act_q8``'s IEEE arithmetic: the decoder's entry and JAX's
+    entry on the rows ``quantize_act_q8`` made give the same outputs bit
+    for bit, in both forms."""
+    args = _q8i_rows(dev, m, seed=20 + m)
+    aq, as_ = tqm.quantize_act_q8(args[0])
+    for form in (args, _last(args)):
+        out, qkv = tqm.q8i_layer_fused_rows(*form, 1e-6)
+        cols = tqm.q8i_layer_fused(aq.t(), as_.t(), form[1].t(), *form[2:],
+                                   1e-6, with_qkv=form[3] is not None)
+        assert torch.equal(out, cols[0].t())
+        if form[3] is not None:
+            assert torch.equal(qkv, cols[1].t())
+
+
+@pytest.mark.parametrize("m", [1, 9])
+def test_q8i_layer_fused_kernel_repeats_bit_for_bit(dev, m):
+    """Each row's sums are added in a fixed order whatever the blocks'
+    timing: calls on the same inputs are equal bit for bit."""
+    args = _q8i_rows(dev, m, seed=40 + m)
+    first = tqm.q8i_layer_fused_rows(*args, 1e-6)
+    last = tqm.q8i_layer_fused_rows(*_last(args), 1e-6)[0]
+    for _ in range(3):
+        for a, b in zip(first, tqm.q8i_layer_fused_rows(*args, 1e-6)):
+            assert torch.equal(a, b)
+        assert torch.equal(last,
+                           tqm.q8i_layer_fused_rows(*_last(args), 1e-6)[0])
 
 
 def test_q8i_layer_fused_kernel_takes_columns_and_stacked_layers(dev):
@@ -765,6 +833,58 @@ def test_q8i_layer_fused_kernel_takes_columns_and_stacked_layers(dev):
                 tqm.q8i_layer_fused(*cols, 1e-6)):
         assert _rel_err(got[0], ref[0]) < K7_TOL
         assert _rel_err(got[1], ref[1]) < K7_TOL
+
+
+@pytest.mark.parametrize("m", [1, 9])
+@pytest.mark.parametrize("with_qkv", [True, False])
+def test_q8i_layer_fused_stage_timer(dev, m, with_qkv):
+    """The timed launch gives the untimed one's outputs bit for bit; its
+    stages are positive and add up to within 10 % of block 0's span, which
+    lies inside the host's clock around the launch and its read-back."""
+    args = _q8i_rows(dev, m, seed=50 + m)
+    if not with_qkv:
+        args = _last(args)
+    plain = tqm.q8i_layer_fused_rows(*args, 1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages, timed = tqm.q8i_layer_fused_stage_ms(*args, 1e-6)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(plain[0], timed[0])
+    if with_qkv:
+        assert torch.equal(plain[1], timed[1])
+    names = ["o", "gate_up", "down"] + (["qkv"] if with_qkv else [])
+    assert set(stages) == set(names) | {"span"}
+    parts = [stages[k] for k in names]
+    assert all(p > 0 for p in parts)
+    assert sum(parts) == pytest.approx(stages["span"], rel=0.1)
+    assert 0 < stages["span"] < host_ms
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16])
+def test_q8i_layer_fused_kernel_matches_plain_at_qwen3_width(dev, m):
+    """Qwen3-0.6B's widths (o 1024x2048, gate_up 6144x1024, down 1024x3072,
+    next qkv 4096x1024) with a trained checkpoint's scale magnitude, on the
+    card's own grid and layout, both forms."""
+    args = _q8i_rows(dev, m, seed=60 + m, widths=(2048, 1024, 3072, 4096),
+                     d_range=(2e-4, 3.5e-4))
+    for form in (args, _last(args)):
+        got = tqm.q8i_layer_fused_rows(*form, 1e-6)
+        ref = tqm.q8i_layer_fused_rows_plain(*form, 1e-6)
+        for g, r in zip(got, ref):
+            if r is not None:
+                assert torch.isfinite(g).all()
+                assert _rel_err(g, r) < K7_TOL
+
+
+def test_q8i_layer_fused_split_fits_the_cards_grid(dev):
+    """Two blocks an SM at m = 1, one at m > 1, at Qwen3-0.6B's widths."""
+    from fun_asr_gguf_tpu_torch.kernels import build
+    sms = build.sm_count(dev)
+    for m, per_sm in ((1, 2), (9, 1), (16, 1)):
+        split = tqm.q8_layer_fused_split(1024, 2048, 3072, 4096, m,
+                                         per_sm * sms, q8i=True)
+        assert build.grid_blocks("q8i_layer_fused_grid", m,
+                                 split.smem) >= per_sm * sms
 
 
 def test_q8i_layer_fused_kernel_refuses_what_it_does_not_take(dev):
@@ -796,6 +916,22 @@ def test_q8i_layer_fused_kernel_refuses_what_it_does_not_take(dev):
         tqm.q8i_layer_fused(*bad, 1e-6)
     with pytest.raises(ValueError):                       # qkv stage halves
         tqm.q8i_layer_fused(*args[:8], None, 1e-6)
+    rows = list(_q8i_rows(dev, 2, seed=3))
+    bad = list(rows)
+    for dtype in (torch.float16, torch.float32):
+        bad[0] = rows[0].to(dtype)
+        with pytest.raises(TypeError):                    # not bf16 attention
+            tqm.q8i_layer_fused_rows(*bad, 1e-6)
+    bad = list(rows)
+    bad[0] = torch.randn(QD, 2, device=dev).to(torch.bfloat16).t()
+    with pytest.raises(ValueError):                       # column view
+        tqm.q8i_layer_fused_rows(*bad, 1e-6)
+    bad = list(rows)
+    bad[1] = rows[1].to(torch.bfloat16)
+    with pytest.raises(TypeError):                        # bf16 residual
+        tqm.q8i_layer_fused_rows(*bad, 1e-6)
+    with pytest.raises(ValueError):                       # qkv stage halves
+        tqm.q8i_layer_fused_rows(*rows[:3], None, *rows[4:], 1e-6)
 
 
 def test_p12_probe_stage_matches_plain(dev):

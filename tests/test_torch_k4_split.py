@@ -1,4 +1,4 @@
-"""K4's work split and shared-memory layout
+"""K4's and K7's work split and shared-memory layout
 (``ops.quant_matmul.q8_layer_fused_split``) on the CPU.
 
 The kernel (``csrc/q8_layer_fused.cu`` on ``csrc/q8_stream.cuh``) copies
@@ -11,7 +11,9 @@ rows balanced, slabs inside their slots, slots that overlap only where
 the kernel requests the later slab after the earlier one's stage, and
 the whole within the H100's shared memory at the blocks an SM the split
 is sized for, at Qwen3-0.6B's widths (m = 1, 9, 16 and the other
-classes' edges, K4a, K4b and K4c) and at the card tests' widths.
+classes' edges, K4a, K4b and K4c) and at the card tests' widths. K7
+(``q8i=True``, the same kernel under the int8-dot contract) takes the
+same split with q8_0 activation rows; its cases are the ``q8i*`` widths.
 """
 
 import pytest
@@ -27,7 +29,11 @@ RAGGED = dict(SMALL, ffn=416)               # scales not whole 16-byte words
 SMALL_HEAD = dict(SMALL, nq=1536)
 WIDTHS = dict(qwen3=(QWEN3, False), head=(HEAD, True), last=(LAST, False),
               small=(SMALL, False), ragged=(RAGGED, False),
-              small_head=(SMALL_HEAD, True))
+              small_head=(SMALL_HEAD, True),
+              # K7: K4a's / K4b's widths and the card tests' (K7_SMALL)
+              q8i=(QWEN3, False), q8i_last=(LAST, False),
+              q8i_small=(dict(h=256, qd=512, ffn=384, nq=640), False),
+              q8i_ragged=(RAGGED, False))
 CASES = [(w, m) for w in WIDTHS for m in (1, 2, 8, 9, 16)]
 IDS = [f"{w}-m{m}" for w, m in CASES]
 
@@ -36,7 +42,8 @@ def _split(name, m):
     w, head = WIDTHS[name]
     per_sm = 2 if m == 1 else 1
     return tqm.q8_layer_fused_split(**w, m=m, blocks=per_sm * SMS,
-                                    head=head), w, head
+                                    head=head,
+                                    q8i=name.startswith("q8i")), w, head
 
 
 def _ranges(split, i):
@@ -74,9 +81,15 @@ def test_split_keeps_gate_row_j_with_up_row_j(name, m):
 
 @pytest.mark.parametrize("name,m", CASES, ids=IDS)
 def test_split_row_counts_differ_by_at_most_one(name, m):
+    """K7's gate_up at m > 1: whole blocks of 32 pairs, whose counts differ
+    by at most one (a block quantizes the gated rows it produces)."""
     split, _, _ = _split(name, m)
     for i in range(len(tqm.K4_MATS)):
         counts = [hi - lo for lo, hi in _ranges(split, i)]
+        if (name.startswith("q8i") and m > 1
+                and tqm.K4_MATS[i] == "gate_up"):
+            assert all(c % tqm.BLOCK == 0 for c in counts)
+            counts = [c // tqm.BLOCK for c in counts]
         assert max(counts) - min(counts) <= 1
 
 
@@ -148,27 +161,56 @@ def test_split_fits_the_cards_shared_memory(name, m):
         tqm.K4_SMEM_SM)
 
 
+def _check_q8_rows(split, w, m):
+    """K7's activation rows: m = 1, one int8 row of the widest matrix and
+    its f32 scales; m > 1, m int8 rows of whole 64-column spans and at
+    least h columns, padded by 32 bytes (8-byte fragment loads of rows g =
+    0..3 then fall on distinct banks), then the scales, 8 rows a block at
+    m <= 8 and 16 above: m k + m k / 8 bytes and the padding, never more
+    than K4's bf16 rows."""
+    lay = split.layout
+    xcols = lay["xcols"]
+    if m == 1:
+        assert xcols == max(split.widths) and lay["xstride"] == 0
+        x_bytes = xcols + xcols // 8
+    else:
+        assert xcols % tqm.K4_SPAN == 0 and xcols >= w["h"]
+        assert lay["xstride"] == xcols + 32 and lay["xstride"] % 32 == 0
+        assert len({(g * lay["xstride"] // 4 + b) % 32 for g in range(4)
+                    for b in range(8)}) == 32
+        x_bytes = (m * lay["xstride"]
+                   + (8 if m <= 8 else 16) * 4 * (xcols // 32))
+        assert x_bytes <= m * (2 * xcols + 16)
+    assert (lay["xstride"], x_bytes) == tqm.k7_activation_bytes(m, xcols)
+    assert lay["red"] >= x_bytes
+
+
 @pytest.mark.parametrize("name,m", CASES, ids=IDS)
 def test_split_sizes_the_activation_rows_and_unit_sums(name, m):
     """m = 1: one f32 row of the widest matrix; m > 1: m bf16 rows of
     whole 64-column spans and at least h columns (the normed rows are
     never chunked), 16 bytes of padding a row (conflict-free fragment
-    loads); the unit sums hold every stage's items (and two head tiles')."""
+    loads); K7: q8_0 rows (``_check_q8_rows``); the unit sums hold every
+    stage's items (and two head tiles')."""
     split, w, head = _split(name, m)
     lay = split.layout
     k = split.widths
-    if m == 1:
+    if name.startswith("q8i"):
+        _check_q8_rows(split, w, m)
+    elif m == 1:
         assert lay["red"] >= 4 * max(k)
+    else:
+        assert lay["xcols"] % tqm.K4_SPAN == 0 and lay["xcols"] >= w["h"]
+        assert lay["xstride"] == 2 * lay["xcols"] + 16
+        assert lay["xstride"] % 32 == 16
+        assert lay["red"] >= m * lay["xstride"]
+    if m == 1:
         rows = [max(hi - lo for lo, hi in _ranges(split, i)) * (
             2 if i == 1 else 1) for i in range(4)]
         if head:
             rows[3] = lay["head_rows"]
         units = [r * -(-kk // tqm.MEGA_UNIT_COLS) for r, kk in zip(rows, k)]
     else:
-        assert lay["xcols"] % tqm.K4_SPAN == 0 and lay["xcols"] >= w["h"]
-        assert lay["xstride"] == 2 * lay["xcols"] + 16
-        assert lay["xstride"] % 32 == 16
-        assert lay["red"] >= m * lay["xstride"]
         stride = 128 if m > 8 else 64
         units = []
         for i, (s, kk) in enumerate(zip(
@@ -237,3 +279,20 @@ def test_split_refuses_what_the_kernel_does_not_take():
         tqm.q8_layer_fused_split(h=16384, qd=16384, ffn=16384, nq=4096, m=16,
                                  blocks=SMS)
 
+
+
+def test_k7_split_gives_qkv_its_own_slot_at_qwen3_widths():
+    """K7's q8_0 rows (55.8 KB at m = 16) leave the qkv slab a slot of its
+    own at every m, where K4's bf16 rows (98.8 KB) do not at m = 16: every
+    slab goes out in the launch's first instructions, and the layout is
+    never cut into column chunks."""
+    for m in (1, 2, 8, 9, 16):
+        split, w, head = _split("q8i", m)
+        assert _regions(split, w, head)["qkv"][2] == 0
+        assert split.layout["xcols"] == max(split.widths)
+
+
+def test_k7_split_refuses_a_head():
+    with pytest.raises(ValueError):
+        tqm.q8_layer_fused_split(**HEAD, m=1, blocks=2 * SMS, head=True,
+                                 q8i=True)

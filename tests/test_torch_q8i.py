@@ -6,7 +6,9 @@ decode against the JAX package, on the CPU.
 * K6: the plain version against JAX's ``_q8dot_ref`` and its Pallas kernel
   in interpret mode; ``matmul_any``'s two branches against JAX's.
 * K7: the plain version against JAX's ``_q8i_layer_ref`` and both of its
-  Pallas kernels (with and without the next-layer qkv) in interpret mode.
+  Pallas kernels (with and without the next-layer qkv) in interpret mode;
+  the decoder's entry (the attention rows quantized inside K7) against
+  JAX's ``quantize_act_q8`` followed by its ``q8i_layer_fused``.
 * The q8i tree carried across (``weights.q8i_from_jax``): prefill, decode
   and 9-row verify steps against JAX's q8i tree, on the plain and on the
   int8 cache; greedy ids against JAX's q8i path; greedy speculation
@@ -198,6 +200,45 @@ def test_k7_plain_takes_row_views_as_columns():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("with_qkv", [True, False])
+@pytest.mark.parametrize("m", [1, 2, 9, 16])
+def test_k7_folded_entry_matches_jax_quantize_then_chain(m, with_qkv):
+    """The decoder's entry takes the attention rows unquantized and the
+    residual as f32 rows: its quantization is JAX's ``quantize_act_q8`` bit
+    for bit, and its outputs JAX's ``q8i_layer_fused`` on those q8_0 rows
+    (jnp reference and Pallas kernel in interpret mode) within the file's
+    relative 1e-4."""
+    rng = np.random.default_rng(60 + m)
+    attn = (rng.normal(size=(m, QD)) * 0.3).astype(np.float32)
+    resid = (rng.normal(size=(m, H)) * 0.5).astype(np.float32)
+    _, jw, _, tw = _chain_inputs(m, seed=70 + m)
+    norms = [(1 + rng.normal(size=(H,)) * 0.1).astype(np.float32)
+             for _ in range(2)]
+    if not with_qkv:
+        jw[3], tw[3], norms[1] = None, None, None
+    jq_, js = jqm.quantize_act_q8(jnp.asarray(attn))
+    tq_, ts = tqm.quantize_act_q8(torch.from_numpy(attn))
+    np.testing.assert_array_equal(tq_.numpy(), _np(jq_))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  _np(js).view(np.int32))
+    tn = [None if n is None else torch.from_numpy(n) for n in norms]
+    out, qkv = tqm.q8i_layer_fused_rows(torch.from_numpy(attn),
+                                        torch.from_numpy(resid), tn[0],
+                                        tn[1], *tw, EPS)
+    assert out.shape == (m, H) and out.dtype == torch.float32
+    assert (qkv is None) == (not with_qkv)
+    jn = [None if n is None else jnp.asarray(n) for n in norms]
+    for use_pallas in (False, True):
+        want = jqm.q8i_layer_fused(jq_.T, js.T, jnp.asarray(resid.T), *jn,
+                                   *jw, EPS, with_qkv=with_qkv,
+                                   use_pallas=use_pallas,
+                                   interpret=use_pallas)
+        assert _rel(out.numpy().T, _np(want[0])) <= 1e-4
+        if with_qkv:
+            assert qkv.shape == (m, NQ)
+            assert _rel(qkv.numpy().T, _np(want[1])) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # the q8i decoder
 # ---------------------------------------------------------------------------
@@ -255,11 +296,12 @@ def _port_step(params, want, step):
 
 
 class _Count:
-    """Counts the decoder's K6 and K7 calls (the plain versions here)."""
+    """Counts the decoder's K6 and K7 calls (the plain versions here; K7
+    through its folded entry)."""
 
     def __init__(self, monkeypatch):
         self.k6 = self.k7 = 0
-        k6, k7 = tqm.q8dot_matmul, tq.q8i_layer_fused
+        k6, k7 = tqm.q8dot_matmul, tq.q8i_layer_fused_rows
 
         def count6(*a, **kw):
             self.k6 += 1
@@ -269,7 +311,7 @@ class _Count:
             self.k7 += 1
             return k7(*a, **kw)
         monkeypatch.setattr(tqm, "q8dot_matmul", count6)
-        monkeypatch.setattr(tq, "q8i_layer_fused", count7)
+        monkeypatch.setattr(tq, "q8i_layer_fused_rows", count7)
 
 
 @pytest.mark.parametrize("kv8", [False, True], ids=["plain_kv", "int8_kv"])
