@@ -14,7 +14,10 @@ Phases, one line each (any failure raises and exits non-zero):
    call that computes the same function where there is one
    (``scaled_dot_product_attention`` for K2 and K3) and the bound (the
    larger of bytes over 3.35 TB/s and operations over the input type's
-   peak): K1 at decode (m = 1), verify (m = 9) and prefill rows, K2 and
+   peak): the decode-sized q8_0 product, one kernel under two dot
+   contracts (K1 and K6: the 152576-row head and the layer-0 qkv at m = 1,
+   2, 8, 9 and 16, and K1 at o, gate_up and down at m = 1, timed cold,
+   cycling the 28 stacked layers), K1's prefill GEMM, K2 and
    K2-i8 (split-KV) at T = 1 and at the verify step's T = 9 on stacked
    28-layer caches, up to S = 2313, K3, K4 (the fused layer chain, with and without the next-layer
    qkv stage) and K4c (the last layer's chain with the final norm and the
@@ -25,8 +28,7 @@ Phases, one line each (any failure raises and exits non-zero):
    head-major caches of S = 768 and 1024, with every slot visible and
    with one (the attention's share is the difference), split by stage
    with its stage timer, each GEMV stage's bytes over its time beside
-   P5's rates, K6 (the q8_0 x q8_0 block-dot
-   product) on the lm_head and the layer-0 qkv at m = 1 and m = 9, and K7
+   P5's rates, and K7
    (the int8-dot layer chain on the streaming engine, with and without the
    next-layer qkv, the attention rows quantized in the kernel) at m = 1,
    2, 8, 9 and 16 on the same layer views, bit-equal to its JAX-signature
@@ -62,7 +64,9 @@ Phases, one line each (any failure raises and exits non-zero):
    path against the CPU f32 path at that cache length; then stage timings, verify rounds and each kernel's launch count per
    path; the launches of one decode step and of one verify round per
    engine; ms per decode step and per verify round, engine against
-   engine in turns; and the host's enqueue of one all-layers step.
+   engine in turns, with K1's launches a step on the q8_0 weights without
+   the fused chain (4 a layer and the head); and the host's enqueue of one
+   all-layers step.
 
 Then the wall time; the second-to-last line is ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -71,10 +75,13 @@ JAX.
     python3 chip_smoke.py --parent DIR   # DIR: another checkout (e.g.
                                          # the parent commit)
 
-also times that checkout's K4a, K4b, K4c, K7 (m = 1 and 9) and K5 in
-turns with this one's (phase 3), on the same inputs in the same process,
-with the parent decoder's per-layer ``quantize_act_q8`` + K7 against the
-folded K7, and its all-layers decode step on this one's engine (phase 4).
+also times that checkout's K1 and K6 (every decode-sized shape above),
+K4a, K4b, K4c, K7 (m = 1 and 9) and K5 in turns with this one's (phase 3),
+on the same inputs in the same process, with the parent decoder's
+per-layer ``quantize_act_q8`` + K7 against the folded K7, compares the
+machine code of the kernels both trees build from the shared stream
+headers (K4, K4c, K7, K5), and times its all-layers decode step on this
+one's engine (phase 4).
 """
 
 import contextlib
@@ -92,21 +99,26 @@ import torch
 # host's enqueue is not timed (shared with the probes)
 from fun_asr_gguf_tpu_torch.probes import time_ms
 
-# (name, m, n, k) — Qwen3-0.6B q8_0 projections, packed (qkv, gate_up),
-# at decode (m = 1) and at the 512-token prefill bucket, plus the lm_head;
-# the verify round's layer-0 qkv and lm_head at m = 9 (spec_k + 1 rows)
+# (name, m, n, k) — K1's prefill GEMM at Qwen3-0.6B's q8_0 projections,
+# packed (qkv, gate_up), at the 512-token prefill bucket
 K1_SHAPES = [
-    ("lm_head m=1", 1, 152576, 1024),
-    ("lm_head m=9", 9, 152576, 1024),
-    ("qkv m=9", 9, 4096, 1024),
-    ("qkv m=1", 1, 4096, 1024),
-    ("o m=1", 1, 1024, 2048),
-    ("gate_up m=1", 1, 6144, 1024),
-    ("down m=1", 1, 1024, 3072),
     ("qkv m=512", 512, 4096, 1024),
     ("o m=512", 512, 1024, 2048),
     ("gate_up m=512", 512, 6144, 1024),
     ("down m=256", 256, 1024, 3072),
+]
+# The decode-sized product (K1 at m <= 16, and K6 at the head and qkv):
+# (name, key of stacked_weights, row counts). m = 1 is a decode step, 9 a
+# verify round (spec_k + 1 rows), 2, 8 and 16 the edges of the m classes;
+# o, gate_up and down run at m = 1 on the q8_0 route without the fused
+# chain. Timed calls cycle the 28 stacked layers (the head alone is
+# larger than L2), so L2 is cold.
+MATVEC_SHAPES = [
+    ("lm_head", "head", (1, 2, 8, 9, 16)),
+    ("qkv", "qkv", (1, 2, 8, 9, 16)),
+    ("o", "o", (1,)),
+    ("gate_up", "gu", (1,)),
+    ("down", "dn", (1,)),
 ]
 # relative tolerances on max|err| / max|ref|, with the reason
 K1_TOL = 1e-4     # same bf16 products, f32 sums in another order
@@ -194,39 +206,38 @@ def phase_kernels(dev, parent=None):
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # K1
-    worst = 0.0
+    w = stacked_weights(dev, gen)
+    rows.update(phase_matvec(dev, gen, w, parent))
+    # K1's prefill GEMM
+    worst = rows["q8_matmul"]["max_abs_err"]
     for name, m, n, k in K1_SHAPES:
         x = randn(m, k)
         q = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
                           dtype=torch.int8)
         d = (torch.rand(n, k // 32, generator=gen, device=dev) * 1.5e-4
              + 2e-4).half().float()
-        w = quant_matmul.Q8Weight(q, d)
-        err, rel = compare(f"q8_matmul {name}", quant_matmul.q8_matmul(x, w),
-                           quant_matmul.q8_matmul_plain(x, w), K1_TOL)
+        wt = quant_matmul.Q8Weight(q, d)
+        err, rel = compare(f"q8_matmul {name}", quant_matmul.q8_matmul(x, wt),
+                           quant_matmul.q8_matmul_plain(x, wt), K1_TOL)
         worst = max(worst, err)
-        ms = time_ms(lambda: quant_matmul.q8_matmul(x, w))
-        pms = time_ms(lambda: quant_matmul.q8_matmul_plain(x, w))
+        ms = time_ms(lambda: quant_matmul.q8_matmul(x, wt))
+        pms = time_ms(lambda: quant_matmul.q8_matmul_plain(x, wt))
         b = bound(nbytes(x, q, d) + m * n * 4, 2 * m * n * k)
         log(f"[3] K1 q8_matmul {name:14s} [{m}x{k}]x[{n}x{k}]^T: max_abs_err "
             f"{err:.3e} rel {rel:.2e} (tol {K1_TOL:g}) kernel {ms:.4f} ms "
             f"plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']})")
-        if name == "lm_head m=1":
-            rows["q8_matmul"] = dict(ms=ms, plain_ms=pms, library_ms=None,
-                                     **b)
-        del x, q, d, w
+        del x, q, d, wt
     rows["q8_matmul"]["max_abs_err"] = worst
 
     rows.update(phase_k2(dev, gen))
-    w = stacked_weights(dev, gen)
     rows["q8_layer_fused"] = phase_k4(dev, gen, w, parent)
     rows["q8_layer_head_fused"] = phase_k4c(dev, gen, w, parent)
     rows["q8_decode_all"], k5_gbps = phase_k5(dev, gen, w, parent)
-    rows["q8dot_matmul"] = phase_k6(dev, gen, w)
     rows["q8i_layer_fused"] = phase_k7(dev, gen, w, parent)
     del w
+    if parent is not None:
+        machine_code_check(parent)
     probe_rows, p5_gbps = phase_probes(dev)
     rows.update(probe_rows)
     log("[3] K5 stream rates (S=768, 1 visible slot; bytes over 28 layers "
@@ -578,6 +589,46 @@ def phase_k5(dev, gen, w, parent=None):
     return row, gbps
 
 
+# the kernels whose sources this tree shares with the parent's through
+# q8_stream.cuh and q8_slab.cuh: K4 / K4c / K7 and K5
+SHARED_KERNELS = ("q8_layer_fused_kernel", "q8_decode_all_kernel")
+
+
+def sass(lib_path):
+    """{mangled function name: its SASS} of a kernel library, by
+    ``cuobjdump -sass`` (the path hashes of internal names taken out)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    # names of internal linkage carry hashes of their source file
+    out = re.sub(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]+",
+                 r"<\1>", out)
+    out = re.sub(r"_INTERNAL_[0-9a-fA-F]+", "_INTERNAL_", out)
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    return {name: body.split("\n\t\t....")[0].strip()
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def machine_code_check(parent):
+    """Whether this tree's K4 / K4c / K7 and K5 kernels are the parent
+    checkout's machine code: every instance of :data:`SHARED_KERNELS` in
+    both libraries, compared instruction for instruction, logged."""
+    import importlib
+    from fun_asr_gguf_tpu_torch.kernels import build
+    pbuild = importlib.import_module(
+        parent.__package__.rsplit(".", 1)[0] + ".kernels.build")
+    this, theirs = sass(build.build()), sass(pbuild.build())
+    names = sorted(n for n in this if any(k in n for k in SHARED_KERNELS))
+    same = [n for n in names if theirs.get(n) == this[n]]
+    log(f"[3] machine code (cuobjdump -sass) of K4 / K4c / K7 "
+        f"(q8_layer_fused_kernel) and K5 (q8_decode_all_kernel) against "
+        f"the parent's: {len(same)} of {len(names)} instances identical"
+        + ("" if len(same) == len(names) else
+           f"; differ: {[n for n in names if n not in same]}"))
+
+
 def load_parent(root):
     """``ops.quant_matmul`` of the port in another checkout (``root``, e.g.
     the parent commit unpacked with ``git archive``), imported as package
@@ -595,45 +646,66 @@ def load_parent(root):
     return importlib.import_module("parent_port.ops.quant_matmul")
 
 
-def phase_k6(dev, gen, w):
-    """K6 at the int8-dot route's shapes: the lm_head (its 152576 rows are
-    larger than L2) and layer 0's packed qkv (timed calls cycle the
-    stacked layers, so L2 is cold) at m = 1 (decode) and m = 9 (verify),
-    on bf16 activations as the decoder passes them. No single PyTorch call
-    computes the function: ``torch._int_mm`` has no block scales."""
+def phase_matvec(dev, gen, w, parent=None):
+    """The decode-sized q8_0 product, one kernel under two dot contracts:
+    K1 (``q8_matmul``, m <= 16) at every shape of :data:`MATVEC_SHAPES`
+    and K6 (``q8dot_matmul``) at the head's and qkv's, on bf16
+    activations as the decoder passes them, each against its plain version
+    and timed cold (the layer matrices cycle the 28 stacked layers); with
+    ``parent`` (another checkout's ``ops.quant_matmul``) its K1 and K6 on
+    the same inputs in turns with this one's. No single PyTorch call
+    computes either function (``torch._int_mm`` has no block scales).
+    Returns the kernels line's rows (the head at m = 1; max_abs_err over
+    every shape)."""
     from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
-    ln = [0]
+    rows = {}
+    worst = {"q8_matmul": 0.0, "q8dot_matmul": 0.0}
+    for name, key, ms_ in MATVEC_SHAPES:
+        full = w[key]
+        ln = [0]
 
-    def qkv(cycle):
-        if cycle:
-            ln[0] = (ln[0] + 1) % len(w["qkv"].q)
-        return qm.Q8DotWeight(*qm.layer(w["qkv"], ln[0]))
+        def weight(cycle, full=full, ln=ln):
+            if full.q.dim() == 2:
+                return full
+            if cycle:
+                ln[0] = (ln[0] + 1) % LAYERS
+            return qm.layer(full, ln[0])
 
-    row, worst = {}, 0.0
-    for name, weight in (("lm_head", lambda cycle: qm.Q8DotWeight(
-            *w["head"])), ("qkv", qkv)):
-        for m in (1, 9):
-            wt = weight(False)
-            n, k = wt.q.shape
-            x = torch.randn(m, k, generator=gen, device=dev).to(
-                torch.bfloat16)
-            err, rel = compare(f"K6 q8dot_matmul {name} m={m}",
-                               qm.q8dot_matmul(x, wt),
-                               qm.q8dot_matmul_plain(x, wt), K6_TOL)
-            worst = max(worst, err)
-            ms = time_ms(lambda: qm.q8dot_matmul(x, weight(True)))
-            pms = time_ms(lambda: qm.q8dot_matmul_plain(x, weight(True)),
-                          iters=10)
-            b = bound(nbytes(x, *wt) + m * n * 4, 2 * m * n * k, "int8")
-            log(f"[3] K6 q8dot_matmul {name} m={m} [{m}x{k}]x[{n}x{k}]^T: "
-                f"max_abs_err {err:.3e} rel {rel:.2e} (tol {K6_TOL:g}) "
-                f"kernel {ms:.4f} ms plain {pms:.4f} ms bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']}); library: no "
-                f"single call")
-            if (name, m) == ("lm_head", 1):
-                row = dict(ms=ms, plain_ms=pms, library_ms=None, **b)
-    row["max_abs_err"] = worst
-    return row
+        n, k = full.q.shape[-2:]
+        for m in ms_:
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            for kern, label, cls, tol, kind in (
+                    ("q8_matmul", "K1", qm.Q8Weight, K1_TOL, "bf16"),
+                    ("q8dot_matmul", "K6", qm.Q8DotWeight, K6_TOL, "int8")):
+                if kern == "q8dot_matmul" and key not in ("head", "qkv"):
+                    continue
+                fn = getattr(qm, kern)
+                plain = getattr(qm, kern + "_plain")
+                wt = cls(*weight(False))
+                err, rel = compare(f"{label} {kern} {name} m={m}",
+                                   fn(x, wt), plain(x, wt), tol)
+                worst[kern] = max(worst[kern], err)
+                pfn = None if parent is None else getattr(parent, kern)
+                ms = in_turns(
+                    f"{label} {kern} {name} m={m}",
+                    lambda: fn(x, cls(*weight(True))),
+                    None if pfn is None else
+                    (lambda: pfn(x, cls(*weight(True)))))
+                pms = (time_ms(lambda: plain(x, cls(*weight(True))), iters=5)
+                       if m in (1, 9) else None)
+                b = bound(nbytes(x, *wt) + m * n * 4, 2 * m * n * k, kind)
+                log(f"[3] {label} {kern} {name} m={m} [{m}x{k}]x[{n}x{k}]^T "
+                    f"(cold): max_abs_err {err:.3e} rel {rel:.2e} (tol "
+                    f"{tol:g}) kernel {ms:.4f} ms plain "
+                    + ("-" if pms is None else f"{pms:.4f}")
+                    + f" ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                    "library: no single call")
+                if (name, m) == ("lm_head", 1):
+                    rows[kern] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                      **b)
+    for kern, err in worst.items():
+        rows[kern]["max_abs_err"] = err
+    return rows
 
 
 def phase_k7(dev, gen, w, parent=None):
@@ -900,7 +972,7 @@ KERNELS = [
      "fun_asr_gguf_tpu/ops/quant_matmul.py:953"),
     ("q8_decode_all", "fun_asr_gguf_tpu_torch/csrc/q8_decode_all.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1970"),
-    ("q8dot_matmul", "fun_asr_gguf_tpu_torch/csrc/q8dot_matmul.cu",
+    ("q8dot_matmul", "fun_asr_gguf_tpu_torch/csrc/q8_matmul.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1416"),
     ("q8i_layer_fused", "fun_asr_gguf_tpu_torch/csrc/q8_layer_fused.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:1586"),
@@ -944,8 +1016,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the repo (e.g. the parent "
-                    "commit from git archive): its K5 is timed in turns "
-                    "with this one's in phase 3")
+                    "commit from git archive): its kernels are timed in "
+                    "turns with this one's in phase 3")
     opts = ap.parse_args()
     t0 = time.perf_counter()
     kind = phase_device()
@@ -1416,6 +1488,7 @@ def decode_step_ms(engines, parent=None, steps=64):
     the host's enqueue of the all-layers step, with ``parent`` also the
     parent checkout's step on the same params, in turns."""
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul
     q8 = engines["q8_0"].models
     envs = {name: env for name, _, _, _, env in ENGINES}
     turns = [(name, engines[name].models, engines[name].models.llm_params)
@@ -1423,7 +1496,7 @@ def decode_step_ms(engines, parent=None, steps=64):
     turns.insert(1 + list(engines).index("q8_0"), (
         "q8_0 unfused", q8,
         {k: v for k, v in q8.llm_params.items() if k != "q8_fused"}))
-    res = {}
+    res, k1 = {}, []
     for name, m, params in turns + turns[::-1]:
         state = m.prefill(np.zeros((200, m.hybrid_cfg.llm.hidden),
                                    np.float32), rng_seed=0)
@@ -1433,13 +1506,25 @@ def decode_step_ms(engines, parent=None, steps=64):
                            limit=4)
             torch.cuda.synchronize()
             t0, step0 = time.perf_counter(), state.step
+            k1_0 = quant_matmul.launches
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
                            chunk_len=steps, stop_tokens=m.stop_tokens)
             torch.cuda.synchronize()
         # the chunk stops early once its row is done (a stop id or the
         # repetition fuse): divide by the steps it ran
+        ran = max(state.step - step0, 1)
         res.setdefault(name, []).append(
-            (time.perf_counter() - t0) * 1e3 / max(state.step - step0, 1))
+            (time.perf_counter() - t0) * 1e3 / ran)
+        if name == "q8_0 unfused":
+            k1.append((quant_matmul.launches - k1_0) / ran)
+    # without the fused chain every projection is a K1 launch: 4 a layer
+    # (packed qkv and gate_up, o, down) and the head
+    want = 4 * q8.hybrid_cfg.llm.n_layers + 1
+    log(f"[4] q8_0 unfused: K1 launches per decode step {k1} (expected "
+        f"{want})")
+    if any(n != want for n in k1):
+        raise RuntimeError(f"the q8_0 unfused step made {k1} K1 launches, "
+                           f"not {want}")
     verify = {}
     for name, eng in engines.items():
         m = eng.models

@@ -1,7 +1,7 @@
 // Device helpers shared by the q8_0 kernels: the warp-per-row q8_0 GEMV
 // (the P2 probe q8_probe.cu, P5(b) in probes.cu),
 // the RMSNorm of an f32 row into shared memory, the warp reductions and
-// the loads they use (with q8_stream.cuh, q8_dot.cuh and split_kv.cuh).
+// the loads they use (with q8_stream.cuh and split_kv.cuh).
 //
 // Numerics: every q*d is formed in f32 and rounded to bf16 once (the JAX
 // reference dequant); activations entering a product are bf16; sums

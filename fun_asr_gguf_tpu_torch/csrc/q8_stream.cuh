@@ -1,5 +1,6 @@
 // The streaming q8_0 weight engine for Hopper (sm_90a): K5's GEMV stages
-// and head (q8_decode_all.cu), K4's and K7's stages (q8_layer_fused.cu).
+// and head (q8_decode_all.cu), K4's and K7's stages (q8_layer_fused.cu),
+// and the decode-sized K1 / K6 product (q8_matmul.cu).
 //
 // A block's share of a q8_0 matrix is a slab of whole rows: a contiguous
 // row range (gate_up: a range of gate rows and the same range of up rows),
@@ -246,9 +247,9 @@ __device__ __forceinline__ void slab_dot(const unsigned char* slot, int R,
   else slab_dot_units<false>(slot, R, k, x, red);
 }
 
-// The int8-dot contract (K7, q8_layer_fused.cu): the weights against a
-// q8_0 activation row, llama.cpp's q8_0 x q8_0 vec_dot as q8_dot.cuh
-// states it: an exact int32 partial per 32-block, then * d_w * d_x in f32,
+// The int8-dot contract (K6, q8_matmul.cu; K7, q8_layer_fused.cu): the
+// weights against a q8_0 activation row, llama.cpp's q8_0 x q8_0 vec_dot
+// as q8_slab.cuh states it: an exact int32 partial per 32-block, then * d_w * d_x in f32,
 // summed in f32. No dequant: four MACs an instruction.
 
 // the exact f32 of an int32 |z| < 2^22 (a block's partial is at most 32 x

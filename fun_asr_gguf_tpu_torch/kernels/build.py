@@ -42,6 +42,8 @@ SIGNATURES = {
     "q8_layer_fused": [_P] * 18 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "q8_decode_all": [_P] * 33 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8dot_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8_matvec_plan": [_I] * 4 + [_P] + [_I] * 2 + [_P],
     "q8i_layer_fused": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "flash_decode_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "flash_decode_i8": [_P] * 9 + [_I] * 7 + [_P],
@@ -157,8 +159,8 @@ def check(code: int, name: str):
 def grid_blocks(name: str, *args) -> int:
     """The co-resident grid a cooperative kernel launches, from its C
     query ``name`` (``q8_layer_fused_grid``, ``q8i_layer_fused_grid``,
-    ``q8_decode_all_grid``) on the
-    current device."""
+    ``q8_decode_all_grid``, or ``q8_matvec_plan``, which also registers
+    the decode-sized product's plan) on the current device."""
     n = ctypes.c_int(0)
     check(getattr(lib(), name)(*args, ctypes.c_void_p(ctypes.addressof(n))),
           name)

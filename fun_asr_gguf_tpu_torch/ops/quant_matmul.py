@@ -8,11 +8,12 @@ Counterpart of ``fun_asr_gguf_tpu/ops/quant_matmul.py`` (``quant_matmul``
 ``q8_mlp_fused`` :649, ``q8_mlp_qkv_fused`` :832, ``q8_layer_head_fused``
 :953, ``quantize_act_q8`` :1340, ``q8dot_matmul`` :1416,
 ``q8i_layer_fused`` :1586, ``q8_decode_all_fused`` :1970 and ``matmul_any``
-:1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1),
+:1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1 and K6: at m <= 16
+one kernel templated on the dot contract, its split and layout from
+:func:`q8_matvec_split`; K1's prefill GEMM above),
 ``csrc/q8_layer_fused.cu`` (K4, K4c and K7: one kernel templated on the
-dot contract), ``csrc/q8_decode_all.cu`` (K5) and ``csrc/q8dot_matmul.cu``
-(K6); their source notes say what bounds them on the H100 and what their
-designs do about it.
+dot contract) and ``csrc/q8_decode_all.cu`` (K5); their source notes say
+what bounds them on the H100 and what their designs do about it.
 
 Weights stay in the GGUF q8_0 form: ``Q8Weight(q=[..., n, k] int8,
 d=[..., n, k/32] f32)`` in NATURAL k order — the TPU's block-permuted lane
@@ -126,6 +127,9 @@ def _launch(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
                          f"{tuple(x.shape)} and {tuple(w.q.shape)}")
     m, k = x.shape
     n = w.q.shape[0]
+    if m < 1 or n < 1:
+        raise ValueError(f"q8_matmul takes at least one row of x and of q, "
+                         f"got m={m}, n={n}")
     if w.q.shape[1] != k or k % BLOCK or tuple(w.d.shape) != (n, k // BLOCK):
         raise ValueError(f"q8_matmul shape mismatch: x {tuple(x.shape)}, "
                          f"q {tuple(w.q.shape)}, d {tuple(w.d.shape)}")
@@ -139,8 +143,10 @@ def _launch(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
     if not (w.q.is_contiguous() and w.d.is_contiguous()):
         raise ValueError("q8_matmul takes contiguous q and d")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16 or w.q.data_ptr() % 16:
-        raise ValueError("q8_matmul needs 16-byte aligned x and q")
+    if xb.data_ptr() % 16 or w.q.data_ptr() % 16 or w.d.data_ptr() % 16:
+        raise ValueError("q8_matmul needs 16-byte aligned x, q and d")
+    if m <= MATVEC_MAX_ROWS:
+        _matvec_plan(x.device, n, k, m, q8i=False)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     code = build.lib().q8_matmul(build.ptr(xb), build.ptr(w.q),
                                  build.ptr(w.d), build.ptr(y), m, n, k,
@@ -148,6 +154,140 @@ def _launch(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
     build.check(code, "q8_matmul")
     launches += 1
     return y
+
+
+MATVEC_MAX_ROWS = 16   # K1 at m <= 16 and K6: the decode-sized product
+# the layout's ints, in the order csrc/q8_matmul.cu reads them
+K1_LAYOUT = ("x", "red", "bars", "ring", "slot", "rows", "depth", "xcols",
+             "xstride")
+K1_TILE_ROWS = 64      # rows of a ring tile, at most: eight 8-row subtiles
+K1_MAX_DEPTH = 16      # ring slots, at most
+K1_MISC = 8 * K1_MAX_DEPTH   # their mbarriers
+
+
+class MatvecSplit(NamedTuple):
+    """The decode-sized product's work split over a grid of ``blocks``
+    blocks and the shared-memory layout it implies (``csrc/q8_matmul.cu``
+    ``q8_matvec_kernel``: :data:`K1_LAYOUT`; the kernel computes block
+    b's first row as ``b * n // blocks``, the rule of ``starts``)."""
+    starts: torch.Tensor  # int32 [blocks + 1]: block b's rows are
+                          # [starts[b], starts[b + 1])
+    layout: dict          # K1_LAYOUT name -> int (byte offsets, sizes, ...)
+    smem: int             # bytes of dynamic shared memory a block
+    per_sm: int           # blocks an SM the layout is sized for
+
+    @property
+    def blocks(self) -> int:
+        return self.starts.shape[0] - 1
+
+
+def q8_matvec_split(n: int, k: int, m: int, blocks: int, q8i: bool = False,
+                    per_sm: int = 2) -> MatvecSplit:
+    """The split and shared-memory layout of the decode-sized q8_0
+    product (K1 at m <= 16 and K6, ``q8i``) of an [n, k] weight against
+    ``m`` activation rows on ``blocks`` blocks, ``per_sm`` of them an SM:
+    block b takes the contiguous rows [b n // blocks, (b + 1) n // blocks)
+    (counts differ by at most one), which arrive as a ring of ``rows``-row
+    tiles (int8 rows, then their f32 scales; slots of 16-byte multiples).
+    Beside the ring: the activation rows (K1 bf16 rows of ``xcols``
+    columns padded by 16 bytes, K6 q8_0 rows, see
+    :func:`k7_activation_bytes`), two buffers of the eight warps' partial
+    tiles and the ring's mbarriers. The warps' eight items of a tile are
+    its 8-row subtiles, each cut into slices of its 64-column spans (a
+    64-row tile: whole rows, one a warp). The tile is
+    :data:`K1_TILE_ROWS` rows (fewer where a block has fewer, or shared
+    memory has no room for two), the ring as deep as the block's shared
+    memory allows (at most :data:`K1_MAX_DEPTH`, two slots where a block
+    has more than one tile); where m rows of k columns leave no room for
+    that, they are taken in column chunks of whole spans. The partial tiles
+    hold 8 activation rows at m <= 8, 16 above (the kernel's two modes). A
+    layout sized for m serves any row count of m's class (1, 2..8, 9..16).
+    A pure function of its arguments."""
+    if not 1 <= m <= MATVEC_MAX_ROWS:
+        raise ValueError(f"the decode-sized q8_0 product takes "
+                         f"1..{MATVEC_MAX_ROWS} rows, got m={m}")
+    if n < 1 or k < BLOCK or k % BLOCK or blocks < 1 or per_sm < 1:
+        raise ValueError(f"q8_matvec_split: n={n}, k={k} (a multiple of "
+                         f"{BLOCK}), blocks={blocks}, per_sm={per_sm}")
+    budget = min(K4_SMEM_BLOCK, K4_SMEM_SM // per_sm - K4_SMEM_RESERVED)
+    b = torch.arange(blocks + 1, dtype=torch.int64)
+    starts = (b * n // blocks).to(torch.int32)
+    most = -(-n // blocks)
+    spans = -(-k // K4_SPAN)
+    red = K4_WARPS * (128 if m > 8 else 64)   # floats of the partial tiles
+    rows_all = []
+    r = min(K1_TILE_ROWS, most)
+    while r >= 1:
+        rows_all.append(r)
+        r //= 2
+    for xcols in range(spans * K4_SPAN, 0, -K4_SPAN):
+        if q8i:
+            xstride, x_bytes = k7_activation_bytes(max(m, 2), xcols)
+        else:
+            xstride = 2 * xcols + 16
+            x_bytes = m * xstride
+        for rows in rows_all:
+            tiles = -(-most // rows)
+            slot = _r16(mega_slab_bytes(rows, k))
+            base = _r16(x_bytes) + _r16(2 * 4 * red) + _r16(K1_MISC)
+            depth = min(K1_MAX_DEPTH, tiles, max(0, budget - base) // slot)
+            if depth < min(2, tiles):
+                continue
+            off = dict(x=0, red=_r16(x_bytes))
+            off["bars"] = off["red"] + _r16(2 * 4 * red)
+            off["ring"] = off["bars"] + _r16(K1_MISC)
+            layout = dict(off, slot=slot, rows=rows, depth=depth,
+                          xcols=xcols, xstride=xstride)
+            return MatvecSplit(starts, layout, off["ring"] + depth * slot,
+                               per_sm)
+    raise ValueError(f"q8_matvec_split: no shared-memory layout of {budget} "
+                     f"bytes a block at n={n}, k={k}, m={m}")
+
+
+def matvec_blocks_per_sm(n: int, sms: int):
+    """The blocks an SM the decode-sized product tries, in order: two
+    where each block gets at least one 8-row subtile (an mma's weight
+    rows) of the n rows, else one (o and down: 8 rows a block, not 4)."""
+    return (2, 1) if n >= 2 * sms * K4_TILE else (1, 2)
+
+
+_matvec_plans = {}
+
+
+def _matvec_plan(dev, n, k, m, q8i):
+    """The decode-sized product's split on the card's co-resident grid
+    (blocks an SM as :func:`matvec_blocks_per_sm` orders them, the first
+    whose layout fits), sized for the largest m of m's class and registered
+    with the kernel library (``q8_matvec_plan``), cached per (device, n, k,
+    m class, contract)."""
+    from ..kernels import build
+    rows = 1 if m == 1 else 8 if m <= 8 else MATVEC_MAX_ROWS
+    key = (dev.index, n, k, rows, q8i)
+    split = _matvec_plans.get(key)
+    if split is None:
+        sms = build.sm_count(dev)
+        splits = []
+        for per_sm in matvec_blocks_per_sm(n, sms):
+            try:
+                splits.append(q8_matvec_split(n, k, rows, per_sm * sms, q8i,
+                                              per_sm))
+            except ValueError:   # half an SM's shared memory is too little
+                pass
+        if not splits:
+            raise ValueError(f"q8_matvec_split: no shared-memory layout at "
+                             f"n={n}, k={k}, m={m}")
+        for split in splits:
+            layout = (build.ctypes.c_int * len(K1_LAYOUT))(
+                *(split.layout[name] for name in K1_LAYOUT))
+            if build.grid_blocks("q8_matvec_plan", n, k, rows, int(q8i),
+                                 layout, split.blocks,
+                                 split.smem) >= split.blocks:
+                break
+        else:
+            raise RuntimeError(f"q8_matvec_plan: no co-resident grid at "
+                               f"n={n}, k={k}, m={m}")
+        _matvec_plans[key] = split
+    return split
 
 
 def _rms_f32(x, w, eps):
@@ -915,11 +1055,16 @@ def _launch_q8dot(x: torch.Tensor, w) -> torch.Tensor:
         raise TypeError(f"q8dot_matmul takes float activations, got "
                         f"{x.dtype}")
     _check_q8([w], x.device, "q8dot_matmul")
-    xf = x.to(torch.float32).contiguous()
+    # bf16 rows (the decoder's) go in as they are, other floats as f32
+    bf16 = x.dtype == torch.bfloat16
+    xk = x.contiguous() if bf16 else x.to(torch.float32).contiguous()
+    if xk.data_ptr() % 16:   # the kernel reads x by 8- or 16-byte words
+        xk = xk.clone()
+    _matvec_plan(x.device, n, k, m, q8i=True)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    code = build.lib().q8dot_matmul(build.ptr(xf), build.ptr(w.q),
-                                    build.ptr(w.d), build.ptr(y), m, n, k,
-                                    build.stream_ptr(x.device))
+    entry = build.lib().q8dot_matmul_bf16 if bf16 else build.lib().q8dot_matmul
+    code = entry(build.ptr(xk), build.ptr(w.q), build.ptr(w.d), build.ptr(y),
+                 m, n, k, build.stream_ptr(x.device))
     build.check(code, "q8dot_matmul")
     q8dot_launches += 1
     return y

@@ -711,6 +711,105 @@ def test_q8dot_matmul_kernel_refuses_what_it_does_not_take(dev):
         tqm.q8dot_matmul(x, tqm.Q8DotWeight(w.q.cpu(), w.d.cpu()))
 
 
+# K1 at m <= 16 and K6: one kernel under two dot contracts
+# (csrc/q8_matmul.cu q8_matvec_kernel; split and layout from
+# ops/quant_matmul.py q8_matvec_split). (wrapper, plain version, weight
+# type, tolerance) of each contract.
+MATVEC = {"k1": (tqm.q8_matmul, tqm.q8_matmul_plain, tqm.Q8Weight, 1e-4),
+          "k6": (tqm.q8dot_matmul, tqm.q8dot_matmul_plain, tqm.Q8DotWeight,
+                 K6_TOL)}
+
+
+def _matvec_launches(contract):
+    return tqm.launches if contract == "k1" else tqm.q8dot_launches
+
+
+def _matvec_weight(dev, contract, n, k, seed, layers=None):
+    return MATVEC[contract][2](*_q8dot(dev, n, k, seed, layers))
+
+
+@pytest.mark.parametrize("contract", ["k1", "k6"])
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("n,k", [(61, 96), (1000, 640), (20011, 1024)])
+def test_q8_matvec_kernel_matches_plain_at_every_row_count(dev, contract, m,
+                                                           n, k):
+    """m = 1 ... 16 under both contracts; n not a multiple of a 32-row
+    tile; k not a multiple of 128 (96: the scales by plain loads) or of 512
+    (640: a partial unit); 20011 rows: several tiles a block, the ring
+    wrapping at least once. One launch a call."""
+    fn, plain, _, tol = MATVEC[contract]
+    w = _matvec_weight(dev, contract, n, k, seed=m + n)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    before = _matvec_launches(contract)
+    out = fn(x, w)
+    torch.cuda.synchronize()
+    assert _matvec_launches(contract) == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert _rel_err(out, plain(x, w)) < tol
+
+
+@pytest.mark.parametrize("contract", ["k1", "k6"])
+@pytest.mark.parametrize("m", [1, 2, 9, 16])
+def test_q8_matvec_kernel_repeats_bit_for_bit(dev, contract, m):
+    fn = MATVEC[contract][0]
+    w = _matvec_weight(dev, contract, 20011, 1024, seed=3)
+    x = torch.randn(m, 1024, device=dev).to(torch.bfloat16)
+    first = fn(x, w)
+    for _ in range(3):
+        assert torch.equal(fn(x, w), first)
+
+
+@pytest.mark.parametrize("contract", ["k1", "k6"])
+@pytest.mark.parametrize("m", [1, 9])
+def test_q8_matvec_kernel_reads_stacked_layers_in_place(dev, contract, m):
+    """A layer view of a stacked [L, n, k] weight is read where it lies
+    and gives what a contiguous copy of the layer gives, bit for bit."""
+    fn, plain, cls, tol = MATVEC[contract]
+    stack = _matvec_weight(dev, contract, 300, 256, seed=4, layers=3)
+    x = torch.randn(m, 256, device=dev).to(torch.bfloat16)
+    for i in range(3):
+        w = tqm.layer(stack, i)
+        assert w.q.data_ptr() == stack.q.data_ptr() + i * 300 * 256
+        out = fn(x, w)
+        assert torch.equal(out, fn(x, cls(w.q.clone(), w.d.clone())))
+        assert _rel_err(out, plain(x, w)) < tol
+
+
+@pytest.mark.parametrize("contract,m,k", [("k1", 2, 16384), ("k1", 16, 16384),
+                                          ("k6", 2, 32768), ("k6", 16, 16384),
+                                          ("k1", 1, 65536)])
+def test_q8_matvec_kernel_takes_wide_rows(dev, contract, m, k):
+    """Where m activation rows of k columns leave the ring no room, the
+    split takes them in column chunks, again for every tile."""
+    fn, plain, _, tol = MATVEC[contract]
+    w = _matvec_weight(dev, contract, 300, k, seed=m)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    assert _rel_err(fn(x, w), plain(x, w)) < tol
+    split = tqm._matvec_plan(dev, 300, k, m, contract == "k6")
+    assert split.layout["xcols"] < k
+
+
+def test_q8_matvec_kernel_refuses_what_it_does_not_take(dev):
+    w = _q8dot(dev, 64, 64, seed=0)
+    x = torch.randn(2, 64, device=dev)
+    for fn, cls in ((tqm.q8_matmul, tqm.Q8Weight),
+                    (tqm.q8dot_matmul, tqm.Q8DotWeight)):
+        with pytest.raises(ValueError):                   # no rows
+            fn(torch.randn(0, 64, device=dev), cls(*w))
+        with pytest.raises(ValueError):                   # k % 32 != 0
+            fn(torch.randn(2, 48, device=dev),
+               cls(w.q[:, :48].contiguous(), w.d[:, :1].contiguous()))
+        d = torch.empty(64 * 2 + 1, device=dev)[1:].view(64, 2)
+        d.copy_(w.d)
+        with pytest.raises(ValueError):                   # misaligned d
+            fn(x, cls(w.q, d))
+        wide = _q8dot(dev, 8, 1 << 18, seed=1)
+        with pytest.raises(ValueError):                   # no layout fits
+            fn(torch.randn(1, 1 << 18, device=dev), cls(*wide))
+    with pytest.raises(ValueError):                       # K6: m > 16
+        tqm.q8dot_matmul(torch.randn(17, 64, device=dev), tqm.Q8DotWeight(*w))
+
+
 def _q8i_chain(dev, m, seed, layers=None, widths=(QD, H, F, NQ),
                d_range=(1e-3, 3e-3)):
     """One K7 call's inputs as JAX's signature takes them: q8_0 columns

@@ -72,6 +72,38 @@ def test_q8_matmul_plain_matches_pallas_interpret(m):
     assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
 
 
+# the decode-sized rows the port's kernel serves (m = 2..16: a verify
+# round is 9), at Qwen3-0.6B's widest k (2048: o; 3072: down) and n not a
+# multiple of 32 (the kernel's ring tiles)
+DECODE_SIZED = [(2, 2048, 200), (9, 2048, 200), (8, 3072, 72),
+                (16, 3072, 72)]
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SIZED)
+def test_q8_matmul_plain_matches_jax_reference_at_decode_sized_rows(m, k, n):
+    # as test_q8_matmul_plain_matches_jax_reference
+    rng = np.random.default_rng(m + k + n)
+    qt = _qt(rng, k, n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    ref = _np(quant_matmul(jnp.asarray(x), qt, use_pallas=False))
+    out = tqm.q8_matmul(torch.from_numpy(x), q8_from_jax(qt))
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SIZED)
+def test_q8_matmul_plain_matches_pallas_interpret_at_decode_sized_rows(m, k,
+                                                                       n):
+    # as test_q8_matmul_plain_matches_pallas_interpret (one tile of n rows)
+    rng = np.random.default_rng(20 + m + k + n)
+    qt = _qt(rng, k, n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    ref = _np(quant_matmul(jnp.asarray(x), qt, tile_n=n, use_pallas=True,
+                           interpret=True))
+    out = tqm.q8_matmul(torch.from_numpy(x), q8_from_jax(qt)).numpy()
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
 def test_q8_weight_is_the_natural_order_of_the_jax_bytes():
     rng = np.random.default_rng(1)
     qt = _qt(rng, 96, 64)

@@ -106,7 +106,12 @@ def test_quantize_act_q8_is_bit_identical_to_jax(dtype):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [(1, 128, 256), (3, 96, 160),
-                                   (9, 256, 384), (16, 64, 128)])
+                                   (9, 256, 384), (16, 64, 128),
+                                   # the decode-sized kernel's row classes
+                                   # at Qwen3-0.6B's widest k, n not a
+                                   # multiple of 32
+                                   (2, 2048, 200), (9, 2048, 200),
+                                   (8, 3072, 72), (16, 3072, 72)])
 def test_k6_plain_matches_jax_reference_and_kernel(m, k, n):
     """The same integer partials; the scales and the block sum in f32, in
     another order: relative 1e-5 of max|ref|."""
