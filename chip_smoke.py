@@ -12,14 +12,21 @@ Phases, one line each (any failure raises and exits non-zero):
    around one call, with the queue kept busy while the host enqueues it,
    so the time excludes the host's launch cost), the time of one PyTorch
    call that computes the same function where there is one
-   (``scaled_dot_product_attention`` for K2 and K3) and the bound (the
+   (``scaled_dot_product_attention`` for K2 and K3; for K1's prefill GEMM
+   a cuBLAS ``torch.matmul`` on the weight dequantized beforehand, as a
+   yardstick of another function) and the bound (the
    larger of bytes over 3.35 TB/s and operations over the input type's
    peak): the decode-sized q8_0 product, one kernel under two dot
    contracts (K1 and K6: the 152576-row head and the layer-0 qkv at m = 1,
    2, 8, 9 and 16, and K1 at o, gate_up and down at m = 1, timed cold,
-   cycling the 28 stacked layers), K1's prefill GEMM, K2 and
+   cycling the 28 stacked layers), K1's prefill GEMM (warpgroup MMA) at
+   Qwen3-0.6B's four projections at m = 256 and 512, its bf16 entry
+   bit-equal to the f32 entry's cast, K2 and
    K2-i8 (split-KV) at T = 1 and at the verify step's T = 9 on stacked
-   28-layer caches, up to S = 2313, K3, K4 (the fused layer chain, with and without the next-layer
+   28-layer caches, up to S = 2313, K3 (warpgroup MMA) on SANM's strided
+   views at T = 1001, a ragged T = 257 and D = 64, bit-equal to its
+   contiguous entry, timed at each key split, K4 (the fused layer chain,
+   with and without the next-layer
    qkv stage) and K4c (the last layer's chain with the final norm and the
    152576-row head, timed beside the K4b + K1 head calls it replaces) at
    m = 1 and m = 9 on layer views of stacked [28, n, k] weights, split
@@ -63,7 +70,9 @@ Phases, one line each (any failure raises and exits non-zero):
    prefill and one verify round through ``spec_generate``, and its card
    path against the CPU f32 path at that cache length; then stage timings, verify rounds and each kernel's launch count per
    path; the launches of one decode step and of one verify round per
-   engine; ms per decode step and per verify round, engine against
+   engine, and of one encode (K3: 70) and one 200-token prefill (K1's
+   GEMM: 112 on the q8_0-weight engines, with bf16 outputs) beside its
+   prefill buckets; ms per decode step and per verify round, engine against
    engine in turns, with K1's launches a step on the q8_0 weights without
    the fused chain (4 a layer and the head); and the host's enqueue of one
    all-layers step.
@@ -76,12 +85,14 @@ JAX.
                                          # the parent commit)
 
 also times that checkout's K1 and K6 (every decode-sized shape above),
-K4a, K4b, K4c, K7 (m = 1 and 9) and K5 in turns with this one's (phase 3),
-on the same inputs in the same process, with the parent decoder's
-per-layer ``quantize_act_q8`` + K7 against the folded K7, compares the
-machine code of the kernels both trees build from the shared stream
-headers (K4, K4c, K7, K5), and times its all-layers decode step on this
-one's engine (phase 4).
+K1's prefill GEMM and K3 (the shapes above), K4a, K4b, K4c, K7 (m = 1
+and 9) and K5 in turns with this one's (phase 3), on the same inputs in
+the same process, with the parent decoder's per-layer ``quantize_act_q8``
++ K7 against the folded K7, compares the machine code of the kernels
+both trees build from shared sources and this one did not redesign (K4,
+K4c, K7, K5, K1 / K6 at m <= 16, K2), and times its all-layers decode
+step on this one's engine (phase 4). Phase 3 always checks that the
+SASS of K1's prefill GEMM and of K3 holds warpgroup MMA (HGMMA).
 """
 
 import contextlib
@@ -100,13 +111,17 @@ import torch
 from fun_asr_gguf_tpu_torch.probes import time_ms
 
 # (name, m, n, k) — K1's prefill GEMM at Qwen3-0.6B's q8_0 projections,
-# packed (qkv, gate_up), at the 512-token prefill bucket
-K1_SHAPES = [
-    ("qkv m=512", 512, 4096, 1024),
-    ("o m=512", 512, 1024, 2048),
-    ("gate_up m=512", 512, 6144, 1024),
-    ("down m=256", 256, 1024, 3072),
-]
+# packed (qkv, gate_up), at both prefill buckets: 256 rows (the 60 s
+# clip's prompt, 126 audio tokens and the ChatML text) and 512
+K1_SHAPES = [(f"{name} m={m}", m, n, k) for m in (256, 512)
+             for name, n, k in (("qkv", 4096, 1024), ("o", 1024, 2048),
+                                ("gate_up", 6144, 1024),
+                                ("down", 1024, 3072))]
+# (name, BH, T, D, valid keys) — K3 at the 60 s clip's encoder (4 heads of
+# 128, T = 1001, the last 101 keys masked), a ragged short T, and D = 64
+K3_SHAPES = [("T=1001 D=128", 4, 1001, 128, 900),
+             ("T=257 D=128", 4, 257, 128, 250),
+             ("T=1001 D=64", 8, 1001, 64, 900)]
 # The decode-sized product (K1 at m <= 16, and K6 at the head and qkv):
 # (name, key of stacked_weights, row counts). m = 1 is a decode step, 9 a
 # verify round (spec_k + 1 rows), 2, 8 and 16 the edges of the m classes;
@@ -208,27 +223,7 @@ def phase_kernels(dev, parent=None):
 
     w = stacked_weights(dev, gen)
     rows.update(phase_matvec(dev, gen, w, parent))
-    # K1's prefill GEMM
-    worst = rows["q8_matmul"]["max_abs_err"]
-    for name, m, n, k in K1_SHAPES:
-        x = randn(m, k)
-        q = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        d = (torch.rand(n, k // 32, generator=gen, device=dev) * 1.5e-4
-             + 2e-4).half().float()
-        wt = quant_matmul.Q8Weight(q, d)
-        err, rel = compare(f"q8_matmul {name}", quant_matmul.q8_matmul(x, wt),
-                           quant_matmul.q8_matmul_plain(x, wt), K1_TOL)
-        worst = max(worst, err)
-        ms = time_ms(lambda: quant_matmul.q8_matmul(x, wt))
-        pms = time_ms(lambda: quant_matmul.q8_matmul_plain(x, wt))
-        b = bound(nbytes(x, q, d) + m * n * 4, 2 * m * n * k)
-        log(f"[3] K1 q8_matmul {name:14s} [{m}x{k}]x[{n}x{k}]^T: max_abs_err "
-            f"{err:.3e} rel {rel:.2e} (tol {K1_TOL:g}) kernel {ms:.4f} ms "
-            f"plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})")
-        del x, q, d, wt
-    rows["q8_matmul"]["max_abs_err"] = worst
+    rows["q8_gemm"] = phase_k1_gemm(dev, gen, parent)
 
     rows.update(phase_k2(dev, gen))
     rows["q8_layer_fused"] = phase_k4(dev, gen, w, parent)
@@ -236,6 +231,7 @@ def phase_kernels(dev, parent=None):
     rows["q8_decode_all"], k5_gbps = phase_k5(dev, gen, w, parent)
     rows["q8i_layer_fused"] = phase_k7(dev, gen, w, parent)
     del w
+    wgmma_check()
     if parent is not None:
         machine_code_check(parent)
     probe_rows, p5_gbps = phase_probes(dev)
@@ -245,32 +241,129 @@ def phase_kernels(dev, parent=None):
         + ", ".join(f"{k} {v:.1f}" for k, v in k5_gbps.items())
         + f" GB/s; P5(a) {p5_gbps['a']:.1f}, P5(b) {p5_gbps['b']:.1f} GB/s")
 
-    # K3: SANM attention at the 60 s window (T = 1001), 4 heads of 128
-    bh, t, dd = 4, 1001, 128
-    q = randn(bh, t, dd) * (dd ** -0.5)
-    k = randn(bh, t, dd)
-    v = randn(bh, t, dd)
-    mask = (torch.arange(t, device=dev) < 900).to(torch.float32)
-    bias = ((mask - 1.0) * 1e4).expand(bh, t).contiguous()
-    err, rel = compare("flash_attention",
-                       flash_attention.flash_attention(q, k, v, bias),
-                       flash_attention.flash_attention_plain(q, k, v, bias),
-                       K3_TOL)
-    ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, bias))
-    pms = time_ms(lambda: flash_attention.flash_attention_plain(q, k, v, bias))
-    # yardstick: the same additive key bias as a bf16 float mask
-    mask_bf = bias.to(torch.bfloat16)[:, None, :]
-    lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask_bf, scale=1.0))
-    b3 = bound(nbytes(q, k, v, bias) + q.numel() * 2, 4 * bh * t * t * dd)
-    log(f"[3] K3 flash_attention BH=4 T=1001 D=128: max_abs_err {err:.3e} "
-        f"rel {rel:.2e} (tol {K3_TOL:g}) kernel {ms:.4f} ms plain "
-        f"{pms:.4f} ms sdpa {lms:.4f} ms bound {b3['bound_ms']:.4f} ms "
-        f"({b3['bound_by']})")
-    rows["flash_attention"] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
-                                   library_ms=lms, **b3)
+    rows["flash_attention"] = phase_k3(dev, gen, parent)
     torch.cuda.synchronize()
     return rows
+
+
+def phase_k1_gemm(dev, gen, parent=None):
+    """K1's prefill GEMM (m > 16) at every shape of :data:`K1_SHAPES`: the
+    f32 entry (the JAX signature) against ``q8_matmul_plain``, the bf16
+    entry (``_proj``'s) bit-equal to the f32 result's cast, the bf16 entry
+    timed, with ``parent`` (another checkout's ``ops.quant_matmul``) in
+    turns with that tree's GEMM (its f32 entry, which its ``_proj`` cast),
+    beside the yardstick: one ``torch.matmul`` of bf16 x with the weight
+    dequantized to bf16 beforehand (cuBLAS; not the same function: it
+    reads 2 bytes a weight, not 1.125, and does no dequant), never called
+    by the port. Returns the kernels line's row (qkv at m = 256, the 60 s
+    clip's; max_abs_err over every shape)."""
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul as qm
+    row, worst, per_layer = {}, 0.0, {}
+    for name, m, n, k in K1_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        d = (torch.rand(n, k // 32, generator=gen, device=dev) * 1.5e-4
+             + 2e-4).half().float()
+        wt = qm.Q8Weight(q, d)
+        got = qm.q8_matmul(x, wt)
+        err, rel = compare(f"K1 q8_gemm {name}", got,
+                           qm.q8_matmul_plain(x, wt), K1_TOL)
+        if not torch.equal(qm.q8_matmul(x, wt, torch.bfloat16),
+                           got.to(torch.bfloat16)):
+            raise RuntimeError(f"K1 q8_gemm {name}: the bf16 entry is not "
+                               "the f32 entry's cast")
+        worst = max(worst, err)
+        ms = in_turns(f"K1 q8_gemm {name}",
+                      lambda: qm.q8_matmul(x, wt, torch.bfloat16),
+                      None if parent is None else
+                      (lambda: parent.q8_matmul(x, wt)))
+        pms = time_ms(lambda: qm.q8_matmul_plain(x, wt), iters=5)
+        wd = qm.dequantize(wt)
+        lms = time_ms(lambda: torch.matmul(x, wd.t()))
+        del wd
+        b = bound(nbytes(x, q, d) + m * n * 2, 2 * m * n * k)
+        plan = qm.q8_gemm_plan(m, n, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        log(f"[3] K1 q8_gemm {name:14s} [{m}x{k}]x[{n}x{k}]^T {plan}: "
+            f"max_abs_err {err:.3e} rel {rel:.2e} (tol {K1_TOL:g}); bf16 "
+            f"entry bit-equal to the f32 entry's cast; kernel {ms:.4f} ms "
+            f"plain {pms:.4f} ms cublas bf16 (yardstick) {lms:.4f} ms bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        per_layer.setdefault(m, []).append(ms)
+        if name == "qkv m=256":
+            row = dict(ms=ms, plain_ms=pms, library_ms=lms, **b)
+        del x, q, d, wt
+    for m, times in per_layer.items():
+        log(f"[3] K1 q8_gemm per layer at m={m} (qkv + o + gate_up + down): "
+            f"{sum(times):.4f} ms, {28 * sum(times):.3f} ms a 28-layer "
+            "prefill")
+    row["max_abs_err"] = worst
+    return row
+
+
+def phase_k3(dev, gen, parent=None):
+    """K3 at every shape of :data:`K3_SHAPES` on the SANM views of a
+    packed [1, T, 3 BH D] projection (the main path's strided entry,
+    ``attention_with_mask``) against the plain version on contiguous
+    copies, bit-equal to the contiguous entry (``flash_attention``); at
+    the encoder's shape timed (the kernel alone, its bias rows made
+    beforehand), with ``parent`` (another checkout's
+    ``ops.flash_attention``) in turns with that tree's kernel on the
+    contiguous copies, at each key split, and beside the yardstick
+    ``scaled_dot_product_attention`` with the same bias as a bf16 mask.
+    Returns the kernels line's row (the encoder's shape)."""
+    from fun_asr_gguf_tpu_torch.ops import flash_attention as fa
+    row, worst = {}, 0.0
+    for name, bh, t, dd, valid in K3_SHAPES:
+        qkv = torch.randn(1, t, 3 * bh * dd, generator=gen,
+                          device=dev).to(torch.bfloat16)
+
+        def heads(x):
+            return x.reshape(1, t, bh, dd).transpose(1, 2)
+        qv, kv, vv = qkv.split(bh * dd, dim=-1)
+        qh, kh, vh = heads(qv) * (dd ** -0.5), heads(kv), heads(vv)
+        mask = (torch.arange(t, device=dev) < valid).to(torch.float32)[None]
+        q, k, v = (a.reshape(bh, t, dd).contiguous() for a in (qh, kh, vh))
+        bias = ((mask - 1.0) * 1e4).expand(bh, t).contiguous()
+        strided = fa.attention_with_mask(qh, kh, vh, mask).reshape(bh, t, dd)
+        err, rel = compare(f"flash_attention {name}", strided,
+                           fa.flash_attention_plain(q, k, v, bias), K3_TOL)
+        if not torch.equal(strided, fa.flash_attention(q, k, v, bias)):
+            raise RuntimeError(f"flash_attention {name}: the strided entry "
+                               "is not the contiguous entry")
+        worst = max(worst, err)
+        msg = (f"[3] K3 flash_attention {name} BH={bh} ({valid} keys "
+               f"valid): max_abs_err {err:.3e} rel {rel:.2e} (tol "
+               f"{K3_TOL:g}); strided entry bit-equal to the contiguous")
+        if name == K3_SHAPES[0][0]:
+            rows_b = fa._bias_rows(bias[:1])
+            pfa = None if parent is None else parent_module(
+                parent, "flash_attention")
+            ms = in_turns(f"K3 flash_attention {name}",
+                          lambda: fa._launch(qh, kh, vh, rows_b),
+                          None if pfa is None else
+                          (lambda: pfa.flash_attention(q, k, v, bias)))
+            splits = {c: time_ms(lambda c=c: fa._launch(qh, kh, vh, rows_b,
+                                                        chunks=c))
+                      for c in (1, 2, 4, 8)}
+            pms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias))
+            mask_bf = bias.to(torch.bfloat16)[:, None, :]
+            lms = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask_bf, scale=1.0))
+            b = bound(nbytes(q, k, v, bias) + q.numel() * 2,
+                      4 * bh * t * t * dd)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            msg += (f"; kernel {ms:.4f} ms (chunks "
+                    f"{fa.attention_chunks(bh, t, sms)}; at 1 / 2 / 4 / 8: "
+                    + " / ".join(f"{v:.4f}" for v in splits.values())
+                    + f") plain {pms:.4f} ms sdpa {lms:.4f} ms bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            row = dict(ms=ms, plain_ms=pms, library_ms=lms, **b)
+        log(msg)
+    row["max_abs_err"] = worst
+    return row
 
 
 def stacked_weights(dev, gen):
@@ -589,9 +682,13 @@ def phase_k5(dev, gen, w, parent=None):
     return row, gbps
 
 
-# the kernels whose sources this tree shares with the parent's through
-# q8_stream.cuh and q8_slab.cuh: K4 / K4c / K7 and K5
-SHARED_KERNELS = ("q8_layer_fused_kernel", "q8_decode_all_kernel")
+# the kernels this tree did not redesign, whose sources it shares with the
+# parent's (q8_stream.cuh, q8_slab.cuh, split_kv.cuh, q8_matmul.cu): K4 /
+# K4c / K7, K5, K1 / K6 at m <= 16 and K2 / K2-i8
+SHARED_KERNELS = ("q8_layer_fused_kernel", "q8_decode_all_kernel",
+                  "q8_matvec_kernel", "flash_decode_kernel")
+# the redesigned kernels, on warpgroup MMA: HGMMA in their SASS
+WGMMA_KERNELS = ("q8_gemm_kernel", "flash_attention_kernel")
 
 
 def sass(lib_path):
@@ -603,7 +700,7 @@ def sass(lib_path):
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True).stdout
     # names of internal linkage carry hashes of their source file
-    out = re.sub(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]+",
+    out = re.sub(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_[0-9a-f]{8}",
                  r"<\1>", out)
     out = re.sub(r"_INTERNAL_[0-9a-fA-F]+", "_INTERNAL_", out)
     parts = re.split(r"\n\s*Function : (\S+)\n", out)
@@ -612,7 +709,7 @@ def sass(lib_path):
 
 
 def machine_code_check(parent):
-    """Whether this tree's K4 / K4c / K7 and K5 kernels are the parent
+    """Whether this tree's kernels that were not redesigned are the parent
     checkout's machine code: every instance of :data:`SHARED_KERNELS` in
     both libraries, compared instruction for instruction, logged."""
     import importlib
@@ -622,11 +719,28 @@ def machine_code_check(parent):
     this, theirs = sass(build.build()), sass(pbuild.build())
     names = sorted(n for n in this if any(k in n for k in SHARED_KERNELS))
     same = [n for n in names if theirs.get(n) == this[n]]
-    log(f"[3] machine code (cuobjdump -sass) of K4 / K4c / K7 "
-        f"(q8_layer_fused_kernel) and K5 (q8_decode_all_kernel) against "
-        f"the parent's: {len(same)} of {len(names)} instances identical"
-        + ("" if len(same) == len(names) else
-           f"; differ: {[n for n in names if n not in same]}"))
+    log(f"[3] machine code (cuobjdump -sass) of {', '.join(SHARED_KERNELS)} "
+        f"against the parent's: {len(same)} of {len(names)} instances "
+        "identical" + ("" if len(same) == len(names) else
+                       f"; differ: {[n for n in names if n not in same]}"))
+
+
+def wgmma_check():
+    """Every instance of :data:`WGMMA_KERNELS` issues warpgroup MMA: its
+    SASS (``cuobjdump -sass``) holds HGMMA instructions; raises where one
+    does not."""
+    import re
+    from fun_asr_gguf_tpu_torch.kernels import build
+    code = sass(build.build())
+    found = {n: code[n].count("HGMMA") for n in sorted(code)
+             if any(k in n for k in WGMMA_KERNELS)}
+    instance = re.compile("(" + "|".join(WGMMA_KERNELS) + r")ILi(\d+)")
+    log("[3] HGMMA instructions in the SASS of " + ", ".join(
+        "{}<{}>: {}".format(*instance.search(n).groups(), c)
+        for n, c in found.items()))
+    if not (all(any(k in n for n in found) for k in WGMMA_KERNELS)
+            and all(found.values())):
+        raise RuntimeError(f"a warpgroup-MMA kernel has no HGMMA: {found}")
 
 
 def load_parent(root):
@@ -644,6 +758,12 @@ def load_parent(root):
     sys.modules["parent_port"] = mod
     spec.loader.exec_module(mod)
     return importlib.import_module("parent_port.ops.quant_matmul")
+
+
+def parent_module(parent, name):
+    """Module ``ops.<name>`` of the checkout :func:`load_parent` loaded."""
+    import importlib
+    return importlib.import_module(f"{parent.__package__}.{name}")
 
 
 def phase_matvec(dev, gen, w, parent=None):
@@ -960,6 +1080,8 @@ def probe_row(r, kind):
 KERNELS = [
     ("q8_matmul", "fun_asr_gguf_tpu_torch/csrc/q8_matmul.cu",
      "fun_asr_gguf_tpu/ops/quant_matmul.py:176"),
+    ("q8_gemm", "fun_asr_gguf_tpu_torch/csrc/q8_gemm.cu",
+     "fun_asr_gguf_tpu/ops/quant_matmul.py:176 (m > 16)"),
     ("flash_decode", "fun_asr_gguf_tpu_torch/csrc/flash_decode.cu",
      "fun_asr_gguf_tpu/ops/flash_decode.py:132"),
     ("flash_decode_i8", "fun_asr_gguf_tpu_torch/csrc/flash_decode.cu",
@@ -1327,6 +1449,7 @@ def phase_e2e(dev, parent=None):
     from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
                                             quant_matmul)
     mods = {"q8_matmul": (quant_matmul, "launches"),
+            "q8_gemm": (quant_matmul, "gemm_launches"),
             "flash_decode": (flash_decode, "launches"),
             "flash_decode_i8": (flash_decode, "launches_i8"),
             "flash_attention": (flash_attention, "launches"),
@@ -1374,6 +1497,7 @@ def phase_e2e(dev, parent=None):
             for name, _, _, want, env in ENGINES:
                 with env_vars(env):
                     step_launches(engines[name], name, mods, want)
+                    encode_prefill_launches(engines[name], name, mods, wav)
             decode_step_ms(engines, parent)
         finally:
             for eng in engines.values():
@@ -1478,6 +1602,53 @@ def step_launches(engine, name, mods, want):
     if step != want or verify != want:
         raise RuntimeError(f"a decode step or verify round of {name} did "
                            "not run its path's kernels")
+
+
+def encode_prefill_launches(engine, name, mods, wav, prompt=200):
+    """K3's launches in one encode of the 60 s clip (one a SANM layer: 70)
+    and K1 GEMM's in one prefill of a ``prompt``-token prompt (the 256
+    bucket): 4 a layer on the q8_0-weight engines (packed qkv, o, packed
+    gate_up, down; the head takes the last row only, at m = 1), none on
+    the int8 ones, whose products are plain f32; every GEMM output of the
+    prefill in the decoder's compute dtype, so ``_proj`` casts nothing
+    after it. Logged beside the engine's prefill buckets."""
+    import collections
+    from fun_asr_gguf_tpu_torch.audio import load_audio
+    from fun_asr_gguf_tpu_torch.ops import quant_matmul
+    m = engine.models
+    cfg = m.hybrid_cfg
+    audio = load_audio(wav, 16000)
+    torch.cuda.synchronize()
+    _reset(mods)
+    m.encode_audio(audio)
+    torch.cuda.synchronize()
+    encode = _counts(mods)["flash_attention"]
+    inner, outs = quant_matmul.q8_matmul, collections.Counter()
+
+    def counted(x, w, out_dtype=torch.float32):
+        y = inner(x, w, out_dtype)
+        if x.shape[0] > quant_matmul.MATVEC_MAX_ROWS:
+            outs[str(y.dtype).replace("torch.", "")] += 1
+        return y
+    p = np.zeros((prompt, cfg.llm.hidden), np.float32)
+    quant_matmul.q8_matmul = counted
+    try:
+        _reset(mods)
+        m.prefill(p, rng_seed=0)
+        torch.cuda.synchronize()
+    finally:
+        quant_matmul.q8_matmul = inner
+    gemm = _counts(mods)["q8_gemm"]
+    q8 = m.weight_format == "q8_0"
+    want = (cfg.encoder.num_blocks + cfg.encoder.tp_blocks,
+            4 * cfg.llm.n_layers if q8 else 0)
+    log(f"[4] {name}: prefill buckets {sorted(m.config.prefill_buckets)} (a "
+        f"{prompt}-token prompt: {m.prompt_bucket(prompt)}); K3 launches an "
+        f"encode {encode}, K1 GEMM launches a prefill {gemm}, their outputs "
+        f"{dict(outs)}; expected {want[0]} and {want[1]}")
+    if (encode, gemm) != want or (q8 and set(outs) != {"bfloat16"}):
+        raise RuntimeError(f"the {name} engine's encode or prefill did not "
+                           "run its path's kernels")
 
 
 def decode_step_ms(engines, parent=None, steps=64):

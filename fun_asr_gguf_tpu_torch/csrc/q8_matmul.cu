@@ -25,11 +25,7 @@
 //    under the two dot contracts (template argument kI8, as K4 and K7 are
 //    one kernel in q8_layer_fused.cu), on the streaming weight engine
 //    (q8_stream.cuh, q8_slab.cuh).
-//  * m > 16 (prefill, K1 only): a tiled tensor-core GEMM with mma.sync
-//    m16n8k16 bf16. A 64x64 output tile per 128-thread block, k in 32-wide
-//    steps: exactly one q8_0 block per weight row per step, dequantized on
-//    the way into shared memory. Bound by tensor-core issue at m = 256/512;
-//    no cp.async/TMA pipelining yet.
+//  * m > 16 (prefill, K1 only): q8_gemm.cu, on warpgroup MMA.
 //
 // What bounds q8_matvec_kernel: bytes. The weight is read once, n k int8
 // plus n k / 32 f32 scales, 1.125 bytes a weight: the 152576 x 1024
@@ -490,116 +486,6 @@ cudaError_t launch_matvec(const void* x, const void* q, const void* d,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Tiled mma.sync GEMM (m > 16)
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64, BN = 64, BK = 32, PAD = 8;   // PAD: conflict-free rows
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(128)
-q8_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-               const int8_t* __restrict__ q, const float* __restrict__ d,
-               float* __restrict__ y, int m, int n, int k) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][BK + PAD];
-  __shared__ __align__(16) __nv_bfloat16 ws[BN][BK + PAD];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;   // 2x2 warps
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nkb = k / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    // x tile: 64 rows x 32 bf16 = 256 16-byte chunks, 2 per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int c = tid + it * 128;
-      const int r = c >> 2, cc = (c & 3) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < m)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(m0 + r) * k + k0 + cc));
-      *reinterpret_cast<uint4*>(&xs[r][cc]) = v;
-    }
-    // weight tile: 64 rows x one q8_0 block; 16 int8 per thread
-    {
-      const int r = tid >> 1, half = (tid & 1) * 16;
-      __align__(16) __nv_bfloat16 wv[16];
-      if (n0 + r < n) {
-        const int4 qv = __ldg(reinterpret_cast<const int4*>(
-            q + static_cast<size_t>(n0 + r) * k + k0 + half));
-        const float s = __ldg(d + static_cast<size_t>(n0 + r) * (k >> 5) + kb);
-        const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          wv[i] = __float2bfloat16(static_cast<float>(qb[i]) * s);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) wv[i] = __float2bfloat16(0.f);
-      }
-      *reinterpret_cast<uint4*>(&ws[r][half]) =
-          *reinterpret_cast<const uint4*>(&wv[0]);
-      *reinterpret_cast<uint4*>(&ws[r][half + 8]) =
-          *reinterpret_cast<const uint4*>(&wv[8]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + g;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][ks + 2 * t]);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][ks + 2 * t]);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][ks + 2 * t + 8]);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn + j * 8 + g;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(&ws[c][ks + 2 * t]);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(&ws[c][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + wm + i * 16 + g;
-      const int c = n0 + wn + j * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = r + (e >> 1) * 8, cc = c + (e & 1);
-        if (rr < m && cc < n) y[static_cast<size_t>(rr) * n + cc] = acc[i][j][e];
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // Register the plan of the decode-sized product at (n, k, the m class of
@@ -647,21 +533,15 @@ extern "C" int q8_matvec_plan(int n, int k, int m, int i8, const void* layout,
 }
 
 // x: bf16 [m, k]; q: int8 [n, k]; d: f32 [n, k/32]; y: f32 [m, n].
-// k % 32 == 0; all pointers 16-byte aligned (checked by the wrapper); at
-// m <= 16 a plan registered for (n, k, m's class) on this device.
+// 1 <= m <= 16 (above, q8_gemm.cu's q8_gemm), k % 32 == 0; all pointers
+// 16-byte aligned (checked by the wrapper); a plan registered for (n, k,
+// m's class) on this device.
 extern "C" int q8_matmul(const void* x, const void* q, const void* d, void* y,
                          int m, int n, int k, void* stream) {
-  if (m < 1 || n < 1 || k < 32 || k % 32)
+  if (m < 1 || m > 16 || n < 1 || k < 32 || k % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 16)
-    return static_cast<int>(
-        launch_matvec(x, q, d, y, m, n, k, false, true, s));
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  q8_gemm_kernel<<<grid, 128, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(d), static_cast<float*>(y), m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_matvec(x, q, d, y, m, n, k, false, true,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // x: f32 [m, k]; wq: int8 [n, k]; wd: f32 [n, k/32]; y: f32 [m, n].

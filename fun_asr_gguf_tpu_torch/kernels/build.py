@@ -36,9 +36,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: name -> argtypes (restype is always int = cudaError_t)
 SIGNATURES = {
     "q8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8_gemm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "q8_layer_fused": [_P] * 18 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "q8_decode_all": [_P] * 33 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     "q8dot_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -50,7 +52,7 @@ SIGNATURES = {
     "split_kv_probe": [_P] * 9 + [_I] * 4 + [_F, _P],
     "q8_stream_sum": [_P] * 10 + [_I] * 5 + [_P],
     "q8_stream_gemv": [_P] * 10 + [_I] * 10 + [_P],
-    "flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flash_attention_bf16": [_P] * 6 + [_L] + [_I] * 5 + [_P],
     "q8_layer_fused_grid": [_I, _I, _P],
     "q8i_layer_fused_grid": [_I, _I, _P],
     "q8_decode_all_grid": [_I] * 6 + [_P],

@@ -360,7 +360,7 @@ def rope_cos_sin(positions, head_dim: int, theta: float, dtype):
 # ---------------------------------------------------------------------------
 
 def _proj(x, w):
-    return matmul_any(x, w).to(x.dtype)
+    return matmul_any(x, w, x.dtype)
 
 
 def _attn_scale(cfg) -> float:

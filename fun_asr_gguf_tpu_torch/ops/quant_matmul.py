@@ -10,7 +10,9 @@ Counterpart of ``fun_asr_gguf_tpu/ops/quant_matmul.py`` (``quant_matmul``
 ``q8i_layer_fused`` :1586, ``q8_decode_all_fused`` :1970 and ``matmul_any``
 :1690). The CUDA kernels are ``csrc/q8_matmul.cu`` (K1 and K6: at m <= 16
 one kernel templated on the dot contract, its split and layout from
-:func:`q8_matvec_split`; K1's prefill GEMM above),
+:func:`q8_matvec_split`), ``csrc/q8_gemm.cu`` (K1 above 16 rows, the
+prefill GEMM on warpgroup MMA, its x panels and cluster k split from
+:func:`q8_gemm_plan`),
 ``csrc/q8_layer_fused.cu`` (K4, K4c and K7: one kernel templated on the
 dot contract) and ``csrc/q8_decode_all.cu`` (K5); their source notes say
 what bounds them on the H100 and what their designs do about it.
@@ -25,7 +27,9 @@ products in :func:`matmul_any`; they never reach K1.
 Numerics (both versions): ``y = bf16(x) @ bf16(q * d)^T`` with the product
 ``q * d`` formed in f32 and rounded to bf16 once, f32 accumulation, f32
 output — the JAX reference path's contract. ``x`` is rounded to bf16 even
-when the caller computes in float32.
+when the caller computes in float32. ``out_dtype`` asks for another
+output type: the f32 result cast to it (the prefill GEMM writes bf16
+itself, from the same f32 sums).
 
 A :class:`Q8DotWeight` holds the same bytes as a :class:`Q8Weight` and
 selects the other contract, llama.cpp's q8_0 x q8_0 ``vec_dot`` (JAX's
@@ -50,7 +54,8 @@ from ..models.common import apply_rope
 BLOCK = 32
 FUSED_MAX_ROWS = 16   # K4 serves decode (m = 1) and verify (m = spec_k + 1)
 
-launches = 0              # K1 launches since the last reset (plain int)
+launches = 0              # K1 launches at m <= 16 since the last reset
+gemm_launches = 0         # K1's prefill GEMM launches (m > 16)
 fused_launches = 0        # K4 launches since the last reset
 head_fused_launches = 0   # K4c launches (K4 with the head in the qkv slot)
 mega_launches = 0         # K5 launches
@@ -112,15 +117,17 @@ def q8_matmul_plain(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
     return torch.matmul(xb, dequantize(w).to(torch.float32).t())
 
 
-def q8_matmul(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
-    """x [m, k] × q8_0 W [n, k] → [m, n] f32 (kernel on CUDA)."""
+def q8_matmul(x: torch.Tensor, w: Q8Weight,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [m, k] × q8_0 W [n, k] → [m, n] f32, or the f32 product cast to
+    ``out_dtype`` (kernel on CUDA)."""
     if x.device.type == "cpu":
-        return q8_matmul_plain(x, w)
-    return _launch(x, w)
+        return q8_matmul_plain(x, w).to(out_dtype)
+    return _launch(x, w, out_dtype)
 
 
-def _launch(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
-    global launches
+def _launch(x: torch.Tensor, w: Q8Weight, out_dtype) -> torch.Tensor:
+    global launches, gemm_launches
     from ..kernels import build
     if x.dim() != 2 or w.q.dim() != 2:
         raise ValueError(f"q8_matmul takes x [m, k] and q [n, k], got "
@@ -147,13 +154,70 @@ def _launch(x: torch.Tensor, w: Q8Weight) -> torch.Tensor:
         raise ValueError("q8_matmul needs 16-byte aligned x, q and d")
     if m <= MATVEC_MAX_ROWS:
         _matvec_plan(x.device, n, k, m, q8i=False)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    code = build.lib().q8_matmul(build.ptr(xb), build.ptr(w.q),
-                                 build.ptr(w.d), build.ptr(y), m, n, k,
-                                 build.stream_ptr(x.device))
-    build.check(code, "q8_matmul")
-    launches += 1
-    return y
+        y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        code = build.lib().q8_matmul(build.ptr(xb), build.ptr(w.q),
+                                     build.ptr(w.d), build.ptr(y), m, n, k,
+                                     build.stream_ptr(x.device))
+        build.check(code, "q8_matmul")
+        launches += 1
+        return y.to(out_dtype)
+    plan = q8_gemm_plan(m, n, k, build.sm_count(x.device))
+    bf16_out = out_dtype == torch.bfloat16
+    y = torch.empty((m, n), dtype=torch.bfloat16 if bf16_out
+                    else torch.float32, device=x.device)
+    code = build.lib().q8_gemm(build.ptr(xb), build.ptr(w.q), build.ptr(w.d),
+                               build.ptr(y), m, n, k, int(bf16_out),
+                               plan.rows, plan.splits,
+                               build.stream_ptr(x.device))
+    build.check(code, "q8_gemm")
+    gemm_launches += 1
+    return y.to(out_dtype)
+
+
+# K1's prefill GEMM (csrc/q8_gemm.cu q8_gemm_kernel): a block's weight
+# rows and k columns a stage, its x panels' rows, and the k split's limit
+# and least share
+GEMM_ROWS = 128
+GEMM_STEP = 64
+GEMM_PANELS = (64, 128)
+GEMM_MAX_SPLITS = 4
+GEMM_MIN_SPLIT_STAGES = 8
+
+
+class GemmPlan(NamedTuple):
+    """K1's prefill GEMM over ``panels`` panels of ``rows`` rows of x, each
+    against every :data:`GEMM_ROWS`-row tile of the weight (``tiles``), k
+    split over ``splits`` blocks of a cluster: ``splits * tiles * panels``
+    blocks."""
+    rows: int
+    panels: int
+    splits: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.splits * self.tiles * self.panels
+
+
+def q8_gemm_plan(m: int, n: int, k: int, sms: int = 132) -> GemmPlan:
+    """The grid of K1's prefill GEMM on a card of ``sms`` SMs: x in panels
+    of 128 rows (one of 64 where m <= 64); then k split in two while the
+    doubled grid still fits one wave of one block an SM and each split
+    keeps :data:`GEMM_MIN_SPLIT_STAGES` 64-column stages, at most
+    :data:`GEMM_MAX_SPLITS` ways (measured on an H100: more, shorter
+    splits lose more to the cluster's combine than they gain in blocks).
+    Qwen3-0.6B at m = 256: qkv 2 splits (128 blocks), gate_up 1 (96), o
+    and down 4 (64)."""
+    rows = GEMM_PANELS[0] if m <= GEMM_PANELS[0] else GEMM_PANELS[1]
+    panels = -(-m // rows)
+    tiles = -(-n // GEMM_ROWS)
+    stages = -(-k // GEMM_STEP)
+    splits = 1
+    while (splits < GEMM_MAX_SPLITS
+           and stages >= 2 * splits * GEMM_MIN_SPLIT_STAGES
+           and 2 * splits * tiles * panels <= sms):
+        splits *= 2
+    return GemmPlan(rows, panels, splits, tiles)
 
 
 MATVEC_MAX_ROWS = 16   # K1 at m <= 16 and K6: the decode-sized product
@@ -1270,11 +1334,13 @@ def _launch_q8i(attn, resid, post_w, next_in_w, o_w, gu_w, down_w,
     return out, (qkv if with_qkv else None)
 
 
-def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
+def matmul_any(x: torch.Tensor, w,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ w`` in f32 for a q8_0 (K1), int8-dot q8_0 (K6, or K1 above 16
-    rows), per-channel int8 or dense weight; leading batch dims on ``x``
-    are flattened (JAX ``matmul_any`` and ``_proj``'s ``Int8Weight``
-    branch, ``qwen3.py:425-431``).
+    rows), per-channel int8 or dense weight, as ``out_dtype`` (the f32
+    product cast; K1's prefill GEMM writes bf16 itself); leading batch
+    dims on ``x`` are flattened (JAX ``matmul_any`` and ``_proj``'s
+    ``Int8Weight`` branch, ``qwen3.py:425-431``).
 
     The int8 and dense products are plain PyTorch in f32: both operands
     upcast (int8 and bf16 values are exact in f32, so this is JAX's
@@ -1287,14 +1353,15 @@ def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
         # K1's contract on the same bytes
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        out = (q8dot_matmul(x2, w) if x2.shape[0] <= Q8DOT_MAX_ROWS
-               else q8_matmul(x2, Q8Weight(*w)))
+        out = (q8dot_matmul(x2, w).to(out_dtype)
+               if x2.shape[0] <= Q8DOT_MAX_ROWS
+               else q8_matmul(x2, Q8Weight(*w), out_dtype))
         return out.reshape(*lead, out.shape[-1])
     if isinstance(w, Q8Weight):
         lead = x.shape[:-1]
-        out = q8_matmul(x.reshape(-1, x.shape[-1]), w)
+        out = q8_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype)
         return out.reshape(*lead, out.shape[-1])
     if isinstance(w, Int8Weight):
         return (torch.matmul(x.to(torch.float32), w.w8.to(torch.float32))
-                * w.scale.to(torch.float32))
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+                * w.scale.to(torch.float32)).to(out_dtype)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(out_dtype)

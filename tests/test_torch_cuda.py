@@ -47,14 +47,74 @@ def _q8(dev, n, k, seed):
 @pytest.mark.parametrize("m", [1, 3, 16, 17, 100])
 @pytest.mark.parametrize("n,k", [(64, 32), (200, 96), (1000, 512)])
 def test_q8_matmul_kernel_matches_plain(dev, m, n, k):
-    # same bf16 products, f32 sums in another order
+    # same bf16 products, f32 sums in another order; one launch of the
+    # decode-sized kernel (m <= 16) or of the prefill GEMM
     w = _q8(dev, n, k, seed=m + n)
     x = torch.randn(m, k, device=dev)
-    before = tqm.launches
+    before = (tqm.launches, tqm.gemm_launches)
     out = tqm.q8_matmul(x, w)
     torch.cuda.synchronize()
-    assert tqm.launches == before + 1
+    assert (tqm.launches, tqm.gemm_launches) == (
+        before[0] + (m <= 16), before[1] + (m > 16))
     assert _rel_err(out, tqm.q8_matmul_plain(x, w)) < 1e-4
+
+
+@pytest.mark.parametrize("m", [17, 63, 64, 65, 129, 256, 512, 700])
+@pytest.mark.parametrize("n,k", [(8, 3072), (1000, 96), (1024, 1024),
+                                 (4096, 32), (1000, 3072)])
+def test_q8_gemm_kernel_matches_plain(dev, m, n, k):
+    # K1's prefill GEMM: ragged m and n edges, k = 32 and 96 (half a
+    # 64-column stage), every x panel and k split the plan gives; the bf16
+    # entry is the f32 entry's cast, bit for bit
+    w = _q8(dev, n, k, seed=m * 7 + n + k)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    before = tqm.gemm_launches
+    out = tqm.q8_matmul(x, w)
+    out16 = tqm.q8_matmul(x, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tqm.gemm_launches == before + 2
+    assert out.dtype == torch.float32 and out16.dtype == torch.bfloat16
+    assert _rel_err(out, tqm.q8_matmul_plain(x, w)) < 1e-4
+    assert torch.equal(out16, out.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [64, 256])
+def test_q8_gemm_kernel_repeats_bit_for_bit_at_every_split(dev, m):
+    # the k split's partials meet in a fixed order: repeated calls agree
+    # bit for bit, and every split agrees with the unsplit product to f32
+    # rounding of the sums
+    from fun_asr_gguf_tpu_torch.kernels import build
+    n, k = 1024, 2048
+    w = _q8(dev, n, k, seed=m)
+    x = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    ref = tqm.q8_matmul_plain(x, w)
+    rows = tqm.q8_gemm_plan(m, n, k).rows
+    for splits in (1, 2, 4, 8):
+        ys = []
+        for _ in range(2):
+            y = torch.empty(m, n, device=dev)
+            build.check(build.lib().q8_gemm(
+                build.ptr(x), build.ptr(w.q), build.ptr(w.d), build.ptr(y),
+                m, n, k, 0, rows, splits, build.stream_ptr(dev)), "q8_gemm")
+            ys.append(y)
+        torch.cuda.synchronize()
+        assert torch.equal(ys[0], ys[1])
+        assert _rel_err(ys[0], ref) < 1e-4
+
+
+def test_q8_gemm_refuses_what_it_does_not_take(dev):
+    from fun_asr_gguf_tpu_torch.kernels import build
+    w = _q8(dev, 64, 64, seed=1)
+    x = torch.randn(32, 64, device=dev).to(torch.bfloat16)
+    y = torch.empty(32, 64, device=dev)
+    lib = build.lib()
+    for rows, splits in ((192, 1), (128, 3), (128, 16)):
+        assert lib.q8_gemm(build.ptr(x), build.ptr(w.q), build.ptr(w.d),
+                           build.ptr(y), 32, 64, 64, 0, rows, splits,
+                           build.stream_ptr(dev)) != 0
+    with pytest.raises(ValueError):                 # k not a multiple of 32
+        tqm.q8_matmul(x[:, :48], tqm.Q8Weight(w.q[:, :48].contiguous(),
+                                              w.d[:, :1].contiguous()))
 
 
 def test_q8_matmul_kernel_reads_a_stacked_layer_in_place(dev):
@@ -449,6 +509,53 @@ def test_flash_attention_kernel_matches_plain(dev, t, d):
     assert tfa.launches == before + 1
     # bf16 P.V operands against the plain f32 softmax
     assert _rel_err(out, tfa.flash_attention_plain(q, k, v, bias)) < 2e-2
+
+
+@pytest.mark.parametrize("t", [1, 63, 65, 1001])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernel_takes_strided_heads(dev, t, d):
+    # SANM's heads: views of one packed [B, T, 3 H D] projection; the
+    # strided entry agrees with the plain version and, bit for bit, with
+    # the contiguous entry at the same key split
+    g = torch.Generator(device=dev).manual_seed(t * d)
+    b, h, bf = 2, 4, torch.bfloat16
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(bf)
+    qv, kv, vv = qkv.split(h * d, dim=-1)
+
+    def heads(x):
+        return x.reshape(b, t, h, d).transpose(1, 2)
+    qh, kh, vh = heads(qv) * d ** -0.5, heads(kv), heads(vv)
+    mask = torch.stack([torch.arange(t, device=dev) < max(1, t - 9),
+                        torch.ones(t, dtype=torch.bool, device=dev)]).float()
+    before = tfa.launches
+    out = tfa.attention_with_mask(qh, kh, vh, mask)
+    assert tfa.launches == before + 1 and out.shape == (b, h, t, d)
+    flat = [a.reshape(b * h, t, d).contiguous() for a in (qh, kh, vh)]
+    bias = ((mask - 1.0) * 1e4).repeat_interleave(h, dim=0)
+    assert _rel_err(out.reshape(b * h, t, d),
+                    tfa.flash_attention_plain(*flat, bias)) < 2e-2
+    # the contiguous entry ([B H, T, D], one head a batch row) splits the
+    # keys of its b * h heads the same way
+    assert torch.equal(out.reshape(b * h, t, d),
+                       tfa.flash_attention(*flat, bias))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8])
+def test_flash_attention_kernel_repeats_at_every_key_split(dev, chunks):
+    # the chunks' partials meet in rank order: a split repeats bit for bit
+    # and agrees with the plain version (T = 1001: 16 key tiles)
+    g = torch.Generator(device=dev).manual_seed(chunks)
+    t, d, bf = 1001, 128, torch.bfloat16
+    q, k, v = ((torch.randn(1, 4, t, d, generator=g, device=dev)
+                * (d ** -0.5 if i == 0 else 1.0)).to(bf) for i in range(3))
+    bias = tfa._bias_rows(((torch.arange(t, device=dev) < 900).float()
+                           - 1.0)[None] * 1e4)
+    a = tfa._launch(q, k, v, bias, chunks=chunks)
+    b = tfa._launch(q, k, v, bias, chunks=chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tfa.flash_attention_plain(q[0], k[0], v[0], bias.expand(4, t))
+    assert _rel_err(a[0], plain) < 2e-2
 
 
 def test_flash_attention_kernel_refuses_float32(dev):

@@ -248,3 +248,38 @@ def test_split_refuses_what_the_kernel_does_not_take():
     for q8i in (False, True):                        # no layout fits
         with pytest.raises(ValueError):
             tqm.q8_matvec_split(8, 1 << 18, 1, SMS, q8i=q8i, per_sm=1)
+
+
+# ------------------------------------------------- the prefill GEMM's plan
+
+GEMM_SHAPES = [(m, n, k) for m in (17, 63, 64, 65, 129, 200, 256, 512, 700)
+               for n, k in ((4096, 1024), (1024, 2048), (6144, 1024),
+                            (1024, 3072), (8, 32), (1000, 96))]
+
+
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_plan_covers_every_row_and_fits_the_kernel(m, n, k):
+    # x panels of 64 or 128 rows, none empty; every weight row in a tile;
+    # k split into a power of two of clusters' blocks (a portable cluster)
+    # that keep whole stages and fit one wave, or no split at all
+    p = tqm.q8_gemm_plan(m, n, k, SMS)
+    assert p.rows in tqm.GEMM_PANELS and p.panels * p.rows >= m
+    assert (p.panels - 1) * p.rows < m
+    assert p.tiles * tqm.GEMM_ROWS >= n > (p.tiles - 1) * tqm.GEMM_ROWS
+    assert p.splits in (1, 2, 4) and p.splits <= tqm.GEMM_MAX_SPLITS
+    stages = -(-k // tqm.GEMM_STEP)
+    assert p.splits == 1 or (p.blocks <= SMS and stages // p.splits
+                             >= tqm.GEMM_MIN_SPLIT_STAGES)
+    assert p.rows % p.splits == 0 and p.rows // p.splits >= 8
+
+
+@pytest.mark.parametrize("m,want", [
+    # Qwen3-0.6B's qkv, o, gate_up, down: (panel rows, panels, splits)
+    (256, [(128, 2, 2), (128, 2, 4), (128, 2, 1), (128, 2, 4)]),
+    (512, [(128, 4, 1), (128, 4, 4), (128, 4, 1), (128, 4, 4)]),
+])
+def test_gemm_plan_at_the_prefill_buckets(m, want):
+    got = [tuple(tqm.q8_gemm_plan(m, n, k, SMS))[:3]
+           for n, k in ((4096, 1024), (1024, 2048), (6144, 1024),
+                        (1024, 3072))]
+    assert got == want

@@ -259,3 +259,22 @@ def test_sampled_tokens_stay_in_the_warped_support():
         for r in range(4):
             pos = (idx[r] == tok[r]).nonzero()
             assert pos.numel() == 1 and probs[r, pos[0, 0]] > 0
+
+
+# ------------------------------------------------ K1's prefill output type
+
+@pytest.mark.parametrize("m", [17, 48])
+@pytest.mark.parametrize("cls", [tqm.Q8Weight, tqm.Q8DotWeight])
+def test_matmul_any_bf16_rows_are_the_f32_product_cast(m, cls):
+    # the decoder's projections ask for their compute dtype: above 16 rows
+    # the card's GEMM writes bf16 itself, from the f32 sums; the plain
+    # version casts its f32 product, so both compute one function
+    rng = np.random.default_rng(m)
+    w = cls(*q8_from_jax(_qt(rng, 96, 40)))
+    x = torch.from_numpy(rng.normal(size=(2, m // 2 + m % 2, 96)).astype(
+        np.float32)).bfloat16()
+    f32 = tqm.matmul_any(x, w)
+    bf16 = tqm.matmul_any(x, w, torch.bfloat16)
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert bf16.shape == f32.shape == (*x.shape[:-1], 40)
+    assert torch.equal(bf16, f32.to(torch.bfloat16))

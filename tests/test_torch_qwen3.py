@@ -182,3 +182,26 @@ def test_generate_chunk_respects_limit(params, prompt):
     tok = tgen.generate_chunk(tp, ts, CFG, 0.7, 0.9, chunk_len=8, limit=3)
     assert ts.step == 3 and (tok[0, 3:] == -1).all()
     assert ((tok[0, :3] >= 0) & (tok[0, :3] < CFG.vocab_size)).all()
+
+
+@pytest.mark.parametrize("dtype,cos", [("float32", COS), ("bfloat16", 0.999)])
+def test_prefill_above_16_rows_matches_jax(params, dtype, cos):
+    # a 48-row bucket: every q8_0 projection takes K1's prefill product
+    # (the GEMM on the card, above 16 rows); in bf16 compute the port asks
+    # it for bf16 rows (matmul_any's out_dtype), JAX casts its f32 product
+    jp, tp = params
+    rng = np.random.default_rng(48)
+    p2, valid = 48, 37
+    emb = np.zeros((1, p2, CFG.hidden), np.float32)
+    emb[0, p2 - valid:] = rng.normal(size=(valid, CFG.hidden)) * 0.5
+    mask = np.zeros((1, p2), np.float32)
+    mask[0, p2 - valid:] = 1.0
+    jlog, jkv = jq.qwen3_prefill(jp, jnp.asarray(emb, dtype),
+                                 jnp.asarray(mask), CFG, kv_max_len=64)
+    tlog, tkv = tq.qwen3_prefill(tp, torch.from_numpy(emb).to(
+        getattr(torch, dtype)), torch.from_numpy(mask), CFG, kv_max_len=64)
+    assert tlog.shape == (1, CFG.vocab_size)
+    assert cosine(tlog.float().numpy(), _np(jlog).astype(np.float32)) > cos
+    for got, want in ((tkv.k, jkv.k), (tkv.v, jkv.v)):
+        assert cosine(got[:, :, p2 - valid:p2].float().numpy(),
+                      _np(want)[:, :, p2 - valid:p2].astype(np.float32)) > cos
