@@ -9,7 +9,6 @@ then chunked on-device generation read once per chunk (:class:`LLMDecoder`,
 """
 
 import logging
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -21,6 +20,7 @@ from ..datatypes import (DecodeResult, LLMDecodeResult, RecognitionStream,
 from ..display import DisplayReporter
 from ..formats.tokenizer import StreamTextDecoder
 from ..models.speculative import spec_to_gen
+from ..profiling import count, counters, span
 from .model_manager import ModelManager
 
 logger = logging.getLogger("fun_asr_gguf_tpu_torch.core")
@@ -40,27 +40,27 @@ class CTCDecoder:
         t_stats = {"infer": 0.0, "decode": 0.0, "hotword": 0.0}
         if not enable_ctc or not self.models.ctc_id2token:
             return [], [], None, t_stats
-        t0 = time.perf_counter()
-        indices = self.models.ctc_indices(enc_output)
-        t_stats["infer"] = time.perf_counter() - t0
+        with span("ctc.infer", timed=True) as s:
+            indices = self.models.ctc_indices(enc_output)
+        t_stats["infer"] = s.seconds
 
-        t0 = time.perf_counter()
-        ctc_text, ctc_results, ctc_details = decode_ctc(
-            indices, self.models.ctc_id2token)
-        t_stats["decode"] = time.perf_counter() - t0
+        with span("ctc.decode", timed=True) as s:
+            ctc_text, ctc_results, ctc_details = decode_ctc(
+                indices, self.models.ctc_id2token)
+        t_stats["decode"] = s.seconds
         t_stats.update(ctc_details)
 
         hotwords: List[str] = []
         draft_text = ctc_text or None
-        t0 = time.perf_counter()
-        corrector = self.models.corrector
-        if corrector and corrector.hotwords and ctc_text:
-            res = corrector.correct(ctc_text, k=max_hotwords)
-            hotwords = list({hw for _, hw, _ in res.matchs}
-                            | {hw for _, hw, _ in res.similars})
-            if res.text:
-                draft_text = res.text
-        t_stats["hotword"] = time.perf_counter() - t0
+        with span("ctc.hotword", timed=True) as s:
+            corrector = self.models.corrector
+            if corrector and corrector.hotwords and ctc_text:
+                res = corrector.correct(ctc_text, k=max_hotwords)
+                hotwords = list({hw for _, hw, _ in res.matchs}
+                                | {hw for _, hw, _ in res.similars})
+                if res.text:
+                    draft_text = res.text
+        t_stats["hotword"] = s.seconds
         return ctc_results, hotwords, draft_text, t_stats
 
 
@@ -81,11 +81,12 @@ class LLMDecoder:
         sync = (torch.cuda.synchronize if models.device.type == "cuda"
                 else (lambda *a: None))
 
-        t0 = time.perf_counter()
-        seed = int(np.random.randint(0, 2 ** 31 - 1))
-        state = models.prefill(full_embd, rng_seed=seed)
-        sync(models.device)
-        res.t_inject = time.perf_counter() - t0
+        with span("llm.prefill", timed=True) as s:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+            state = models.prefill(full_embd, rng_seed=seed)
+            count("host.syncs")
+            sync(models.device)
+        res.t_inject = s.seconds
 
         # CTC-draft speculation (distribution-preserving, see
         # models/speculative.py)
@@ -95,23 +96,43 @@ class LLMDecoder:
         if draft_ids is not None:
             state = models.spec_prepare(state)
 
-        t0 = time.perf_counter()
-        text_decoder = StreamTextDecoder(models.tokenizer,
-                                         reporter if stream_output else None)
+        with span("llm.generate", timed=True) as s:
+            self._generate(res, state, draft_ids, n_predict,
+                           reporter if stream_output else None,
+                           temperature, top_p, top_k)
+        res.t_gen = s.seconds
+        return res
+
+    def _generate(self, res, state, draft_ids, n_predict, reporter,
+                  temperature, top_p, top_k):
+        """The chunks after the prefill: the speculative ones while
+        ``draft_ids`` is set, then plain ones; fills ``res``."""
+        models = self.models
+        text_decoder = StreamTextDecoder(models.tokenizer, reporter)
         chunk_len = models._default_chunk_len()
         stop_set = set(models.stop_tokens) | {models.eos_token}
         generated = 0
+        before = counters()
 
         def push_chunk(tokens, done) -> Tuple[int, bool]:
             """The one host sync of a chunk: its tokens and done flag.
             Returns (tokens emitted, done)."""
-            host = torch.cat([tokens[0], done[:1].to(torch.int64)]
-                             ).cpu().tolist()
-            emitted = [t for t in host[:-1] if t >= 0]
-            for tok in emitted:
-                if tok not in stop_set:
-                    text_decoder.push(tok)
+            with span("llm.push"):
+                count("host.syncs")
+                host = torch.cat([tokens[0], done[:1].to(torch.int64)]
+                                 ).cpu().tolist()
+                emitted = [t for t in host[:-1] if t >= 0]
+                for tok in emitted:
+                    if tok not in stop_set:
+                        text_decoder.push(tok)
             return len(emitted), bool(host[-1])
+
+        def spec_log(what):
+            now = counters()
+            tokens, rounds = (now.get(k, 0) - before.get(k, 0)
+                              for k in ("spec.tokens", "spec.rounds"))
+            logger.info("%s: %d tokens in %d verify rounds (%.2f a round)",
+                        what, tokens, rounds, tokens / max(rounds, 1))
 
         done = False
         first_spec = True
@@ -126,6 +147,7 @@ class LLMDecoder:
                 state, draft_ids, temperature=temperature, top_p=top_p,
                 top_k=top_k, chunk_len=chunk_len, limit=todo)
             n_emitted, done = push_chunk(tokens, state.done)
+            count("spec.tokens", n_emitted)
             generated += n_emitted
             if done or n_emitted == 0:
                 done = True
@@ -134,17 +156,16 @@ class LLMDecoder:
             # decode step, so below spec_min_accept emitted tokens per
             # round drafting is slower than plain decode; a pending forbid
             # rides along into the plain chunk's first draw
+            count("host.syncs")
             rounds = int(state.rounds[0].item())
             min_acc = models.config.spec_min_accept
             if rounds >= 8 and min_acc > 0 and generated / rounds < min_acc:
-                logger.info("speculation off: %.2f tokens/round < %.2f "
-                            "(%d rounds)", generated / rounds, min_acc, rounds)
+                count("spec.off")
+                spec_log(f"speculation off (below {min_acc:.2f} a round)")
                 state = spec_to_gen(state)
                 draft_ids = None
         if draft_ids is not None:
-            rounds = int(state.rounds[0].item())
-            logger.info("speculation: %d tokens in %d verify rounds",
-                        generated, rounds)
+            spec_log("speculation")
 
         while not done and generated < n_predict:
             todo = min(chunk_len, n_predict - generated)
@@ -153,12 +174,11 @@ class LLMDecoder:
                                      chunk_len=chunk_len, limit=todo)
             generated += todo
             _, done = push_chunk(tokens, state.done)
+        count("host.syncs", 2)
         res.is_aborted = bool(state.aborted[0].item())
         text_decoder.flush()
         res.text = text_decoder.generated_text
         res.n_gen = int(state.n_gen[0].item())
-        res.t_gen = time.perf_counter() - t0
-        return res
 
 
 class StreamDecoder:
@@ -180,19 +200,19 @@ class StreamDecoder:
         models = self.models
         if reporter:
             reporter.print("\n[2] 音频编码...")
-        t0 = time.perf_counter()
-        audio_embd, enc_output = models.encode_audio(stream.audio_data)
-        timings.encode = time.perf_counter() - t0
+        with span("encode", timed=True) as s:
+            audio_embd, enc_output = models.encode_audio(stream.audio_data)
+        timings.encode = s.seconds
         if reporter:
             reporter.print(f"    耗时: {timings.encode*1000:.2f}ms")
 
         if reporter:
             reporter.print("\n[3] CTC 解码...")
-        t0 = time.perf_counter()
-        ctc_results, hotwords, draft_text, ctc_times = \
-            self.ctc_decoder.decode(enc_output, models.config.enable_ctc,
-                                    models.config.max_hotwords)
-        timings.ctc = time.perf_counter() - t0
+        with span("ctc", timed=True) as s:
+            ctc_results, hotwords, draft_text, ctc_times = \
+                self.ctc_decoder.decode(enc_output, models.config.enable_ctc,
+                                        models.config.max_hotwords)
+        timings.ctc = s.seconds
         timings.ctc_infer = ctc_times["infer"]
         timings.ctc_decode = ctc_times["decode"]
         timings.hotword_verify = ctc_times["hotword"]
@@ -207,10 +227,11 @@ class StreamDecoder:
         if reporter:
             reporter.print("\n[4] 准备 Prompt...")
         context = models.augment_context(context, draft_text)
-        t0 = time.perf_counter()
-        p_embd, s_embd, n_p, n_s, p_text = \
-            models.prompt_builder.build_prompt(hotwords, language, context)
-        timings.prepare = time.perf_counter() - t0
+        with span("prepare", timed=True) as s:
+            p_embd, s_embd, n_p, n_s, p_text = \
+                models.prompt_builder.build_prompt(hotwords, language,
+                                                   context)
+        timings.prepare = s.seconds
         if verbose and reporter:
             reporter.print("-" * 15 + " Prefix Prompt " + "-" * 15 + "\n"
                            + p_text + "\n" + "-" * 40)
@@ -223,14 +244,21 @@ class StreamDecoder:
         stream_output = verbose or (
             reporter is not None and getattr(reporter, "on_stream", None))
         llm_res = None
-        for _ in range(6):
-            llm_res = self.llm_decoder.decode(
-                full_embd, models.config.n_predict,
-                stream_output=bool(stream_output), reporter=reporter,
-                temperature=temperature, top_p=top_p, top_k=top_k,
-                draft_text=draft_text)
+        for attempt in range(6):
+            with span("llm.attempt", index=attempt) as s:
+                llm_res = self.llm_decoder.decode(
+                    full_embd, models.config.n_predict,
+                    stream_output=bool(stream_output), reporter=reporter,
+                    temperature=temperature, top_p=top_p, top_k=top_k,
+                    draft_text=draft_text)
+                s.note("aborted", llm_res.is_aborted)
+            count("llm.attempts")
+            count("llm.tokens", llm_res.n_gen)
             if not llm_res.is_aborted:
                 break
+            if attempt < 5:     # retried: the fuse threw this attempt away
+                count("llm.aborted")
+                count("llm.aborted_tokens", llm_res.n_gen)
             temperature += 0.3
             llm_res.text += ABORT_MARKER
             if reporter is not None and hasattr(reporter, "stream_reset"):
@@ -245,16 +273,16 @@ class StreamDecoder:
             reporter.print("\n" + "=" * 70)
             reporter.print("\n[6] 时间戳对齐")
 
-        t0 = time.perf_counter()
         aligned = None
         timestamps: List[float] = []
         tokens: List[str] = []
-        if ctc_results:
-            aligned = align_timestamps(ctc_results, text)
-            if aligned:
-                tokens = [seg["char"] for seg in aligned]
-                timestamps = [seg["start"] for seg in aligned]
-        timings.align = time.perf_counter() - t0
+        with span("align", timed=True) as s:
+            if ctc_results:
+                aligned = align_timestamps(ctc_results, text)
+                if aligned:
+                    tokens = [seg["char"] for seg in aligned]
+                    timestamps = [seg["start"] for seg in aligned]
+        timings.align = s.seconds
 
         stream.set_result(text=text, timestamps=timestamps, tokens=tokens)
         return DecodeResult(

@@ -42,6 +42,7 @@ from ..models.qwen3 import (fuse_qwen3_params_q8, pack_qwen3_params,
                             quantize_qwen3_params_int8)
 from ..models.speculative import (spec_generate_chunk, spec_init,
                                   spec_to_gen)
+from ..profiling import count
 from ..prompt_utils import PromptBuilder
 from ..utils import vprint
 
@@ -228,6 +229,7 @@ class ModelManager:
             torch.tensor([n], dtype=torch.int64, device=self.device),
             self.audio_cfg, compute_dtype=self._compute_dtype)
         target_len = audio_token_length(n, self.audio_cfg.frontend)
+        count("host.syncs")
         return embd[0, :target_len].cpu().numpy(), enc
 
     @torch.inference_mode()
@@ -236,6 +238,7 @@ class ModelManager:
         idx = ctc_head_forward(self.ctc_params,
                                enc_output.to(self._compute_dtype),
                                self.hybrid_cfg.ctc)
+        count("host.syncs")
         return idx[0].cpu().numpy()
 
     @torch.inference_mode()

@@ -9,9 +9,9 @@ overlap merge, SRT export and the stats report. The batched
 """
 
 import os
-import time
 from typing import Optional
 
+from .. import profiling
 from ..audio import load_audio
 from ..datatypes import RecognitionStream, Statistics, TranscriptionResult
 from ..display import DisplayReporter
@@ -41,37 +41,38 @@ class TranscriptionOrchestrator:
                    top_k: int = 50, on_stream=None, on_stream_reset=None,
                    preloaded_audio=None) -> TranscriptionResult:
         result = TranscriptionResult()
-        with DisplayReporter(verbose=verbose, on_stream=on_stream,
-                             on_stream_reset=on_stream_reset) as reporter:
+        with profiling.request(), DisplayReporter(
+                verbose=verbose, on_stream=on_stream,
+                on_stream_reset=on_stream_reset) as reporter:
             try:
                 line = "=" * 70
                 reporter.print(f"\n{line}\n处理音频: "
                                f"{os.path.basename(audio_path)}\n{line}",
                                force=True)
                 reporter.print("\n[1] 加载音频...")
-                t0 = time.perf_counter()
                 sr = self.models.config.sample_rate
-                audio = (preloaded_audio if preloaded_audio is not None
-                         else load_audio(audio_path, sr,
-                                         start_second=start_second,
-                                         duration=duration))
-                result.timings.load_audio = time.perf_counter() - t0
+                with profiling.span("load_audio", timed=True) as s:
+                    audio = (preloaded_audio if preloaded_audio is not None
+                             else load_audio(audio_path, sr,
+                                             start_second=start_second,
+                                             duration=duration))
+                result.timings.load_audio = s.seconds
                 audio_duration = len(audio) / sr
                 result.audio_seconds = audio_duration
                 reporter.print(f"    音频长度: {audio_duration:.2f}s")
                 base_offset = start_second if start_second else 0.0
 
-                t_proc = time.perf_counter()
                 kw = dict(temperature=temperature, top_p=top_p, top_k=top_k)
-                if audio_duration <= segment_size + 2.0:
-                    self._transcribe_short(audio, result, language, context,
-                                           verbose, reporter, base_offset,
-                                           **kw)
-                else:
-                    self._transcribe_long(audio, result, language, context,
-                                          segment_size, overlap, reporter,
-                                          base_offset, **kw)
-                result.timings.total = time.perf_counter() - t_proc
+                with profiling.span("process", timed=True) as s:
+                    if audio_duration <= segment_size + 2.0:
+                        self._transcribe_short(audio, result, language,
+                                               context, verbose, reporter,
+                                               base_offset, **kw)
+                    else:
+                        self._transcribe_long(audio, result, language,
+                                              context, segment_size, overlap,
+                                              reporter, base_offset, **kw)
+                result.timings.total = s.seconds
                 self._print_stats(reporter, result)
                 if srt and result.segments:
                     srt_path = os.path.splitext(audio_path)[0] + ".srt"
@@ -93,8 +94,9 @@ class TranscriptionOrchestrator:
                           reporter, base_offset, **kw):
         stream = RecognitionStream()
         stream.accept_waveform(self.models.config.sample_rate, audio)
-        d_res = self.decoder.decode_stream(stream, language, context, verbose,
-                                           reporter, **kw)
+        with profiling.span("segment", index=0):
+            d_res = self.decoder.decode_stream(stream, language, context,
+                                               verbose, reporter, **kw)
         for name in _TIMING_FIELDS:
             setattr(result.timings, name, getattr(d_res.timings, name))
         result.text = d_res.text
@@ -140,8 +142,9 @@ class TranscriptionOrchestrator:
                            force=True)
             stream = RecognitionStream()
             stream.accept_waveform(sr, audio[int(s_s * sr):int(e_s * sr)])
-            d_res = self.decoder.decode_stream(stream, language, context,
-                                               True, reporter, **kw)
+            with profiling.span("segment", index=idx):
+                d_res = self.decoder.decode_stream(stream, language, context,
+                                                   True, reporter, **kw)
             segment_results.append({
                 "text": d_res.text, "segments": d_res.aligned,
                 "duration": e_s - s_s, "hotwords": d_res.hotwords,

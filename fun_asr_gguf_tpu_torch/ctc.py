@@ -15,11 +15,12 @@ Behavioral port of the reference's host-side CTC layer
   (``nano_ctc.py:189-230``), multi-char CTC tokens assume 80 ms per char.
 """
 
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .profiling import span
 
 
 @dataclass
@@ -46,36 +47,37 @@ def decode_ctc(indices_or_logits: np.ndarray, id2token: Dict[int, str]
     if arr.ndim == 1 or (arr.ndim == 2 and arr.shape[0] == 1):
         indices = arr.reshape(-1)
     else:
-        t0 = time.perf_counter()
-        logits_f32 = arr.astype(np.float32)
-        t_cast = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        indices = np.argmax(logits_f32, axis=-1).reshape(-1)
-        t_argmax = time.perf_counter() - t0
+        with span("ctc.cast", timed=True) as s:
+            logits_f32 = arr.astype(np.float32)
+        t_cast = s.seconds
+        with span("ctc.argmax", timed=True) as s:
+            indices = np.argmax(logits_f32, axis=-1).reshape(-1)
+        t_argmax = s.seconds
 
-    t0 = time.perf_counter()
-    blank_id = max(id2token.keys()) if id2token else 0
+    with span("ctc.loop", timed=True) as s:
+        blank_id = max(id2token.keys()) if id2token else 0
 
-    results: List[Token] = []
-    if indices.size:
-        # vectorized collapse: segment starts where the id changes
-        change = np.empty(indices.shape, dtype=bool)
-        change[0] = True
-        np.not_equal(indices[1:], indices[:-1], out=change[1:])
-        starts = np.flatnonzero(change)
-        ids = indices[starts]
-        keep = ids != blank_id
-        for token_id, start in zip(ids[keep].tolist(), starts[keep].tolist()):
-            text = id2token.get(int(token_id), "")
-            if not text:
-                continue
-            t_start = max((start * FRAME_SHIFT_MS + OFFSET_MS) / 1000.0, 0.0)
-            results.append(Token(text=text, start=t_start))
+        results: List[Token] = []
+        if indices.size:
+            # vectorized collapse: segment starts where the id changes
+            change = np.empty(indices.shape, dtype=bool)
+            change[0] = True
+            np.not_equal(indices[1:], indices[:-1], out=change[1:])
+            starts = np.flatnonzero(change)
+            ids = indices[starts]
+            keep = ids != blank_id
+            for token_id, start in zip(ids[keep].tolist(),
+                                       starts[keep].tolist()):
+                text = id2token.get(int(token_id), "")
+                if not text:
+                    continue
+                t_start = max((start * FRAME_SHIFT_MS + OFFSET_MS) / 1000.0,
+                              0.0)
+                results.append(Token(text=text, start=t_start))
 
-    full_text = "".join(r.text for r in results)
-    t_loop = time.perf_counter() - t0
+        full_text = "".join(r.text for r in results)
     return full_text, results, {"cast": t_cast, "argmax": t_argmax,
-                                "loop": t_loop}
+                                "loop": s.seconds}
 
 
 def _nw_align(ctc_chars: List[str], llm_chars: List[str]

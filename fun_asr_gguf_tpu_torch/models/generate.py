@@ -8,7 +8,9 @@ sampled token and one decode step — on device tensors. Like JAX's
 row is done. On a card the host reads ``done`` without draining the
 queue: each step copies it to pinned memory right after the sampling,
 before the decode step, and the next step waits only for that copy, so
-the decode step it enqueued keeps the card busy meanwhile.
+the decode step it enqueued keeps the card busy meanwhile. Each step is a
+``decode.step`` span (``..profiling``) of ``decode.wait`` (that wait),
+``decode.sample`` and ``decode.forward`` (the step's enqueue).
 
 Reference behaviour kept: stop ids {151643, 151645} end generation and are
 not counted; the sampled token is fed back even when it is a stop id; the
@@ -24,6 +26,7 @@ from typing import Tuple
 import torch
 
 from ..ops.sampling import sample_residual
+from ..profiling import count, span
 from .qwen3 import KVCache, embed_tokens, qwen3_decode_step, qwen3_prefill
 
 RING = 30          # fuse window
@@ -106,44 +109,52 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     if dev.type == "cuda":
         done_host = torch.empty(b, dtype=torch.bool, pin_memory=True)
         copied = torch.cuda.Event()
-    for t in range(n_steps):
-        if done_host is None or t == 0:
-            if bool(state.done.all()):
-                break
-        else:
-            copied.synchronize()
-            if bool(done_host.all()):
-                break
-        # sample_residual with no exclusion is sample_token; a pending
-        # exclusion is consumed by exactly one draw
-        token = sample_residual(state.logits, state.generator, temperature,
-                                top_p, top_k,
-                                state.forbid if t == 0 else None)
-        if t == 0:
-            state.forbid = torch.full_like(state.forbid, -1)
-        active = ~state.done
-        is_stop = torch.isin(token, stops)
-        counted = active & ~is_stop
-        buf[:, t] = torch.where(active, token, -1)
+    with span("decode.chunk"):
+        for t in range(n_steps):
+            with span("decode.step"):
+                with span("decode.wait"):
+                    count("host.syncs")
+                    if done_host is None or t == 0:
+                        stop = bool(state.done.all())
+                    else:
+                        copied.synchronize()
+                        stop = bool(done_host.all())
+                if stop:
+                    break
+                count("decode.steps")
+                with span("decode.sample"):
+                    # sample_residual with no exclusion is sample_token; a
+                    # pending exclusion is consumed by exactly one draw
+                    token = sample_residual(state.logits, state.generator,
+                                            temperature, top_p, top_k,
+                                            state.forbid if t == 0 else None)
+                    if t == 0:
+                        state.forbid = torch.full_like(state.forbid, -1)
+                    active = ~state.done
+                    is_stop = torch.isin(token, stops)
+                    counted = active & ~is_stop
+                    buf[:, t] = torch.where(active, token, -1)
 
-        pos = state.n_gen % RING
-        cur = state.ring[rows, pos]
-        state.ring[rows, pos] = torch.where(counted, token, cur)
-        state.n_gen = state.n_gen + counted.to(torch.int64)
-        fused = counted & (state.n_gen > RING) & \
-            (_distinct_count(state.ring) <= FUSE_DISTINCT)
-        state.done = state.done | (active & is_stop) | fused
-        state.aborted = state.aborted | fused
-        if done_host is not None:
-            done_host.copy_(state.done, non_blocking=True)
-            copied.record()
+                    pos = state.n_gen % RING
+                    cur = state.ring[rows, pos]
+                    state.ring[rows, pos] = torch.where(counted, token, cur)
+                    state.n_gen = state.n_gen + counted.to(torch.int64)
+                    fused = counted & (state.n_gen > RING) & \
+                        (_distinct_count(state.ring) <= FUSE_DISTINCT)
+                    state.done = state.done | (active & is_stop) | fused
+                    state.aborted = state.aborted | fused
+                    if done_host is not None:
+                        done_host.copy_(state.done, non_blocking=True)
+                        copied.record()
 
-        # feed the sampled token back (stop ids included; rows already
-        # done feed a dummy whose logits are never used)
-        emb = embed_tokens(params, torch.where(active, token, 0))
-        slot = p + state.step
-        state.logits, state.kv = qwen3_decode_step(
-            params, state.kv, emb, slot, state.prompt_len + state.step,
-            state.valid_from, cfg)
-        state.step += 1
+                with span("decode.forward"):
+                    # feed the sampled token back (stop ids included; rows
+                    # already done feed a dummy whose logits are never
+                    # used)
+                    emb = embed_tokens(params, torch.where(active, token, 0))
+                    slot = p + state.step
+                    state.logits, state.kv = qwen3_decode_step(
+                        params, state.kv, emb, slot,
+                        state.prompt_len + state.step, state.valid_from, cfg)
+                state.step += 1
     return buf

@@ -21,7 +21,9 @@ repetition fuse (checked per emitted token), the ``limit`` budget and the
 JAX's ``lax.while_loop`` over rounds (:258-262) becomes a host loop over
 verify rounds on device tensors with a ``torch.Generator``: the loop test
 reads one flag per round on the host (a device sync per round), which at
-batch 1 is the accepted count's only trip to the host.
+batch 1 is the accepted count's only trip to the host. Each round is a
+``spec.round`` span (``..profiling``) of ``spec.sync`` (that read),
+``spec.draft``, ``spec.forward`` (the verify pass) and ``spec.accept``.
 """
 
 from dataclasses import dataclass
@@ -30,6 +32,7 @@ from typing import Tuple
 import torch
 
 from ..ops.sampling import sample_residual, warped_candidates
+from ..profiling import count, span
 from .generate import (FUSE_DISTINCT, RING, GenState, _distinct_count)
 from .qwen3 import KVCache, embed_tokens, qwen3_verify_step
 
@@ -80,6 +83,7 @@ def spec_to_gen(state: SpecState) -> GenState:
     guardrail's switch). GenState keeps one host step counter, so every
     row must sit at the same slot (true at batch 1). A pending ``forbid``
     rides along: the plain chunk's first draw consumes it."""
+    count("host.syncs")
     slot = state.slot_next.tolist()
     if any(s != slot[0] for s in slot):
         raise ValueError(f"spec_to_gen requires uniform row slots (got "
@@ -151,89 +155,109 @@ def spec_generate_chunk(params, state: SpecState, draft_ids, cfg,
     draft_ids = draft_ids.to(device=dev, dtype=torch.int64)
 
     while True:
-        active = ~state.done & (t_next < limit)
-        if not bool(active.any()):          # the round's one host sync
-            break
-        # 1. pending: the token the plain loop would draw now (from the
-        #    residual distribution after a rejected draft)
-        pending = sample_residual(state.logits, state.generator, temperature,
-                                  top_p, top_k, state.forbid)
-        pend_stop = torch.isin(pending, stops)
+        with span("spec.round"):
+            with span("spec.sync"):
+                active = ~state.done & (t_next < limit)
+                count("host.syncs")
+                go = bool(active.any())     # the round's one host sync
+            if not go:
+                break
+            count("spec.rounds")
+            with span("spec.draft"):
+                # 1. pending: the token the plain loop would draw now (from
+                #    the residual distribution after a rejected draft)
+                pending = sample_residual(state.logits, state.generator,
+                                          temperature, top_p, top_k,
+                                          state.forbid)
+                pend_stop = torch.isin(pending, stops)
 
-        # 2. draft proposal; no speculation past a stop, for paused rows or
-        #    past the budget; a stop id inside the draft ends it
-        d_tok, d_valid, start, _ = _lookup_draft(
-            draft_ids, state.last_tok, pending, state.cursor, spec_k)
-        d_valid &= (active & ~pend_stop)[:, None]
-        d_valid &= torch.cumprod((~torch.isin(d_tok, stops)).to(torch.int64),
-                                 dim=1).bool()
-        d_valid &= (t_next[:, None] + lanes[None, 1:]) < limit
+                # 2. draft proposal; no speculation past a stop, for paused
+                #    rows or past the budget; a stop id inside the draft
+                #    ends it
+                d_tok, d_valid, start, _ = _lookup_draft(
+                    draft_ids, state.last_tok, pending, state.cursor, spec_k)
+                d_valid &= (active & ~pend_stop)[:, None]
+                d_valid &= torch.cumprod(
+                    (~torch.isin(d_tok, stops)).to(torch.int64), dim=1).bool()
+                d_valid &= (t_next[:, None] + lanes[None, 1:]) < limit
 
-        # 3. one verify pass over [pending, d_1 .. d_K]
-        tok_seq = torch.cat([pending[:, None], d_tok], dim=1)
-        emb = embed_tokens(params, tok_seq)
-        logits_v, state.kv = qwen3_verify_step(
-            params, state.kv, emb, state.slot_next,
-            state.pos_next[:, None] + lanes[None, :], state.valid_from, cfg)
+            with span("spec.forward"):
+                # 3. one verify pass over [pending, d_1 .. d_K]
+                tok_seq = torch.cat([pending[:, None], d_tok], dim=1)
+                emb = embed_tokens(params, tok_seq)
+                logits_v, state.kv = qwen3_verify_step(
+                    params, state.kv, emb, state.slot_next,
+                    state.pos_next[:, None] + lanes[None, :],
+                    state.valid_from, cfg)
 
-        # 4. acceptance of each drafted token, then the accepted prefix
-        score = logits_v[:, :spec_k, :]
-        if greedy:
-            acc = torch.argmax(score, dim=-1) == d_tok
-        else:
-            probs, idx = warped_candidates(score, temperature, top_p, top_k)
-            p_d = torch.where(idx == d_tok[:, :, None], probs,
-                              torch.zeros_like(probs)).sum(dim=-1)
-            u = torch.rand(p_d.shape, generator=state.generator, device=dev)
-            acc = u < p_d
-        acc &= d_valid
-        a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
+            with span("spec.accept"):
+                # 4. acceptance of each drafted token, then the accepted
+                #    prefix
+                score = logits_v[:, :spec_k, :]
+                if greedy:
+                    acc = torch.argmax(score, dim=-1) == d_tok
+                else:
+                    probs, idx = warped_candidates(score, temperature, top_p,
+                                                   top_k)
+                    p_d = torch.where(idx == d_tok[:, :, None], probs,
+                                      torch.zeros_like(probs)).sum(dim=-1)
+                    u = torch.rand(p_d.shape, generator=state.generator,
+                                   device=dev)
+                    acc = u < p_d
+                acc &= d_valid
+                a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
 
-        # a probabilistic rejection excludes that id from the next draw;
-        # validity and budget rejections resample unconstrained
-        if spec_k == 0:
-            forbid = torch.where(active, -1, state.forbid)
-        else:
-            rej_i = a.clamp(0, spec_k - 1)[:, None]
-            rej_was_valid = torch.gather(d_valid, 1, rej_i)[:, 0] & \
-                (a < spec_k) & (not greedy)
-            forbid = torch.where(
-                active, torch.where(rej_was_valid,
-                                    torch.gather(d_tok, 1, rej_i)[:, 0], -1),
-                state.forbid)
+                # a probabilistic rejection excludes that id from the next
+                # draw; validity and budget rejections resample
+                # unconstrained
+                if spec_k == 0:
+                    forbid = torch.where(active, -1, state.forbid)
+                else:
+                    rej_i = a.clamp(0, spec_k - 1)[:, None]
+                    rej_was_valid = torch.gather(d_valid, 1, rej_i)[:, 0] & \
+                        (a < spec_k) & (not greedy)
+                    forbid = torch.where(
+                        active, torch.where(
+                            rej_was_valid,
+                            torch.gather(d_tok, 1, rej_i)[:, 0], -1),
+                        state.forbid)
 
-        # 5. next logits: after the last consumed token (lane a)
-        state.logits = torch.where(active[:, None], logits_v[rows, a],
-                                   state.logits)
-        state.forbid = forbid
+                # 5. next logits: after the last consumed token (lane a)
+                state.logits = torch.where(active[:, None], logits_v[rows, a],
+                                           state.logits)
+                state.forbid = forbid
 
-        # 6. emit pending + accepted drafts
-        n_emit = torch.where(active, 1 + a, 0)
-        emit = active[:, None] & (lanes[None, :] < n_emit[:, None])
-        cols = torch.where(emit, t_next[:, None] + lanes[None, :], sink)
-        buf[rows[:, None], cols] = tok_seq
-        buf[:, sink] = -1
+                # 6. emit pending + accepted drafts
+                n_emit = torch.where(active, 1 + a, 0)
+                emit = active[:, None] & (lanes[None, :] < n_emit[:, None])
+                cols = torch.where(emit, t_next[:, None] + lanes[None, :],
+                                   sink)
+                buf[rows[:, None], cols] = tok_seq
+                buf[:, sink] = -1
 
-        # 7. ring, counters and the fuse, per emitted token
-        fused = torch.zeros(b, dtype=torch.bool, device=dev)
-        for i in range(spec_k + 1):
-            tok = tok_seq[:, i]
-            counted = emit[:, i] & ~torch.isin(tok, stops)
-            pos = state.n_gen % RING
-            state.ring[rows, pos] = torch.where(counted, tok,
-                                                state.ring[rows, pos])
-            state.n_gen = state.n_gen + counted.to(torch.int64)
-            fused |= counted & (state.n_gen > RING) & \
-                (_distinct_count(state.ring) <= FUSE_DISTINCT)
-        state.done = state.done | (active & pend_stop) | fused
-        state.aborted = state.aborted | fused
+                # 7. ring, counters and the fuse, per emitted token
+                fused = torch.zeros(b, dtype=torch.bool, device=dev)
+                for i in range(spec_k + 1):
+                    tok = tok_seq[:, i]
+                    counted = emit[:, i] & ~torch.isin(tok, stops)
+                    pos = state.n_gen % RING
+                    state.ring[rows, pos] = torch.where(counted, tok,
+                                                        state.ring[rows, pos])
+                    state.n_gen = state.n_gen + counted.to(torch.int64)
+                    fused |= counted & (state.n_gen > RING) & \
+                        (_distinct_count(state.ring) <= FUSE_DISTINCT)
+                state.done = state.done | (active & pend_stop) | fused
+                state.aborted = state.aborted | fused
 
-        # 8. advance (pending and accepted drafts all entered the cache)
-        state.slot_next = state.slot_next + n_emit
-        state.pos_next = state.pos_next + n_emit
-        t_next = t_next + n_emit
-        last = torch.gather(tok_seq, 1, (n_emit - 1).clamp(0, spec_k)[:, None])
-        state.last_tok = torch.where(active, last[:, 0], state.last_tok)
-        state.cursor = torch.where(active, start + a, state.cursor)
-        state.rounds = state.rounds + active.to(torch.int64)
+                # 8. advance (pending and accepted drafts all entered the
+                #    cache)
+                state.slot_next = state.slot_next + n_emit
+                state.pos_next = state.pos_next + n_emit
+                t_next = t_next + n_emit
+                last = torch.gather(tok_seq, 1,
+                                    (n_emit - 1).clamp(0, spec_k)[:, None])
+                state.last_tok = torch.where(active, last[:, 0],
+                                             state.last_tok)
+                state.cursor = torch.where(active, start + a, state.cursor)
+                state.rounds = state.rounds + active.to(torch.int64)
     return buf[:, :chunk_len]
