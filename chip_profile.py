@@ -98,6 +98,7 @@ def profile_window(label, fn, setup=lambda: None):
 def main():
     from fun_asr_gguf_tpu_torch.audio import load_audio
     from fun_asr_gguf_tpu_torch import create_asr_engine
+    from fun_asr_gguf_tpu_torch.models.decode_graph import DecodeGraphs
     from fun_asr_gguf_tpu_torch.models.generate import generate_chunk
     from fun_asr_gguf_tpu_torch.models.qwen3 import (
         fuse_qwen3_params_q8_mega, fuse_qwen3_params_q8i)
@@ -131,12 +132,14 @@ def main():
                                dtype=torch.int64, device=m.device)
 
             def decode(temp, params=m.llm_params):
+                graphs = DecodeGraphs()   # the warm-up call captures
+
                 def run(state):
                     with torch.inference_mode():
                         return generate_chunk(
                             params, state, m.hybrid_cfg.llm, temp, 1.0, 50,
                             chunk_len=DECODE_STEPS,
-                            stop_tokens=m.stop_tokens)
+                            stop_tokens=m.stop_tokens, graphs=graphs)
                 return run
             d = default.models
 

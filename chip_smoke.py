@@ -1581,6 +1581,10 @@ def step_launches(engine, name, mods, want):
     one verify round of an engine against what its path must launch."""
     m = engine.models
     p = np.zeros((200, m.hybrid_cfg.llm.hidden), np.float32)
+    # a step of this shape first: it captures the decode graph (an eager
+    # step, then the capture), which the counted step replays
+    m.generate(m.prefill(p, rng_seed=0), 0.0, 1.0, 50, chunk_len=64,
+               limit=1)
     state = m.prefill(p, rng_seed=0)
     torch.cuda.synchronize()
     _reset(mods)
@@ -1674,12 +1678,13 @@ def decode_step_ms(engines, parent=None, steps=64):
         with torch.inference_mode(), env_vars(envs.get(name, {})):
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
                            chunk_len=steps, stop_tokens=m.stop_tokens,
-                           limit=4)
+                           limit=4, graphs=m.decode_graphs)
             torch.cuda.synchronize()
             t0, step0 = time.perf_counter(), state.step
             k1_0 = quant_matmul.launches
             generate_chunk(params, state, m.hybrid_cfg.llm, 0.0, 1.0, 50,
-                           chunk_len=steps, stop_tokens=m.stop_tokens)
+                           chunk_len=steps, stop_tokens=m.stop_tokens,
+                           graphs=m.decode_graphs)
             torch.cuda.synchronize()
         # the chunk stops early once its row is done (a stop id or the
         # repetition fuse): divide by the steps it ran
@@ -1715,7 +1720,8 @@ def decode_step_ms(engines, parent=None, steps=64):
             torch.cuda.synchronize()
         verify[name] = (time.perf_counter() - t0) * 1e3 / max(
             int(sstate.rounds[0]) - r0, 1)
-    log(f"[4] decode step (28 layers + head + sampling, eager), ms/step in "
+    log(f"[4] decode step (28 layers + head as a CUDA graph replay, "
+        f"sampling eager), ms/step in "
         f"turns {' / '.join(n for n, _, _ in turns)} and back: "
         + "; ".join(f"{n} {' / '.join(f'{x:.3f}' for x in v)}"
                     for n, v in res.items())

@@ -16,7 +16,9 @@ Counterpart of ``fun_asr_gguf_tpu/core/model_manager.py``. The init stages:
    sampling mode (in the smallest bucket, or every bucket with
    ``warmup_all_buckets``), and with ``speculative`` one speculative chunk and the
    plain chunk that follows ``spec_to_gen``, on the configured cache
-   (``kv_cache_dtype``; builds the CUDA kernels on first use);
+   (``kv_cache_dtype``; builds the CUDA kernels on first use, and on a
+   card captures the decode step's graph, which the manager keeps in
+   ``decode_graphs``, ``models/decode_graph.py``);
 5. hotword manager (+ the opt-in rule corrector and correction RAG).
 """
 
@@ -35,6 +37,7 @@ from ..frontend import audio_token_length, frontend_constants
 from ..hotword.manager import get_hotword_manager
 from ..models.adaptor import ctc_head_forward
 from ..models.audio_encoder import AudioEncoderConfig, audio_encoder_forward
+from ..models.decode_graph import DecodeGraphs
 from ..models.generate import generate_chunk, prefill_init
 from ..models.loaders import load_checkpoint
 from ..models.qwen3 import (fuse_qwen3_params_q8, pack_qwen3_params,
@@ -47,6 +50,8 @@ from ..prompt_utils import PromptBuilder
 from ..utils import vprint
 
 logger = logging.getLogger("fun_asr_gguf_tpu_torch.core")
+
+KV_BLOCK = 256     # the cache holds n_predict rounded up to whole blocks
 
 
 class ModelManager:
@@ -77,6 +82,7 @@ class ModelManager:
         self._compute_dtype = (torch.bfloat16
                                if config.compute_dtype == "bfloat16"
                                else torch.float32)
+        self.decode_graphs = DecodeGraphs()
         self._initialized = False
 
     @property
@@ -251,7 +257,10 @@ class ModelManager:
         mask = np.zeros((1, bucket), dtype=np.float32)
         mask[0, bucket - p_len:] = 1.0
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        max_len = bucket + self.config.n_predict
+        # whole blocks of slots for the output: requests whose n_predict
+        # differ within a block get caches of one shape, and so share one
+        # decode graph
+        max_len = bucket + -(-self.config.n_predict // KV_BLOCK) * KV_BLOCK
         if self.config.speculative:
             # a verify round writes spec_k + 1 rows from the next free slot;
             # the rejected ones need room to land in
@@ -268,7 +277,8 @@ class ModelManager:
                  chunk_len: int, limit: Optional[int] = None):
         return generate_chunk(self.llm_params, state, self.hybrid_cfg.llm,
                               temperature, top_p, top_k, chunk_len=chunk_len,
-                              stop_tokens=self.stop_tokens, limit=limit)
+                              stop_tokens=self.stop_tokens, limit=limit,
+                              graphs=self.decode_graphs)
 
     def make_draft_ids(self, draft_text: str) -> Optional[torch.Tensor]:
         """Tokenize a CTC transcript into the [1, spec_draft_len] draft
@@ -353,4 +363,5 @@ class ModelManager:
         self._stop_private_watchers()
         self.encoder_params = self.adaptor_params = None
         self.ctc_params = self.llm_params = None
+        self.decode_graphs = DecodeGraphs()
         self._initialized = False

@@ -8,9 +8,11 @@ sampled token and one decode step — on device tensors. Like JAX's
 row is done. On a card the host reads ``done`` without draining the
 queue: each step copies it to pinned memory right after the sampling,
 before the decode step, and the next step waits only for that copy, so
-the decode step it enqueued keeps the card busy meanwhile. Each step is a
-``decode.step`` span (``..profiling``) of ``decode.wait`` (that wait),
-``decode.sample`` and ``decode.forward`` (the step's enqueue).
+the decode step it enqueued keeps the card busy meanwhile. On a card the
+decode step is one replay of a CUDA graph (:mod:`.decode_graph`); the CPU
+runs it eagerly. Each step is a ``decode.step`` span (``..profiling``) of
+``decode.wait`` (that wait), ``decode.sample`` and ``decode.forward`` (the
+step's enqueue).
 
 Reference behaviour kept: stop ids {151643, 151645} end generation and are
 not counted; the sampled token is fed back even when it is a stop id; the
@@ -27,6 +29,7 @@ import torch
 
 from ..ops.sampling import sample_residual
 from ..profiling import count, span
+from .decode_graph import DecodeGraphs
 from .qwen3 import KVCache, embed_tokens, qwen3_decode_step, qwen3_prefill
 
 RING = 30          # fuse window
@@ -91,11 +94,14 @@ def _distinct_count(ring):
 def generate_chunk(params, state: GenState, cfg, temperature: float,
                    top_p: float, top_k: int = 50, chunk_len: int = 64,
                    stop_tokens: Tuple[int, ...] = (151643, 151645),
-                   limit: int = None) -> torch.Tensor:
+                   limit: int = None,
+                   graphs: DecodeGraphs = None) -> torch.Tensor:
     """Run up to ``min(chunk_len, limit)`` steps, stopping once every row
     is done (JAX's ``cond``); returns the token buffer [B, chunk_len] (-1
     where a row was already done, or past the last step). ``state`` is
-    advanced in place."""
+    advanced in place. On a card the steps replay graphs of ``graphs``
+    (an engine's, so that its requests capture once; a new one
+    otherwise)."""
     b = state.logits.shape[0]
     dev = state.logits.device
     n_steps = chunk_len if limit is None else min(chunk_len, limit)
@@ -109,6 +115,8 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     if dev.type == "cuda":
         done_host = torch.empty(b, dtype=torch.bool, pin_memory=True)
         copied = torch.cuda.Event()
+        if graphs is None:
+            graphs = DecodeGraphs()
     with span("decode.chunk"):
         for t in range(n_steps):
             with span("decode.step"):
@@ -151,10 +159,13 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
                     # feed the sampled token back (stop ids included; rows
                     # already done feed a dummy whose logits are never
                     # used)
-                    emb = embed_tokens(params, torch.where(active, token, 0))
-                    slot = p + state.step
-                    state.logits, state.kv = qwen3_decode_step(
-                        params, state.kv, emb, slot,
-                        state.prompt_len + state.step, state.valid_from, cfg)
+                    fed = torch.where(active, token, 0)
+                    if dev.type == "cuda":
+                        graphs.step(params, state, fed, cfg)
+                    else:
+                        state.logits, state.kv = qwen3_decode_step(
+                            params, state.kv, embed_tokens(params, fed),
+                            p + state.step, state.prompt_len + state.step,
+                            state.valid_from, cfg)
                 state.step += 1
     return buf

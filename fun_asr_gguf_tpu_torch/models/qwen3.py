@@ -114,13 +114,19 @@ def _kv_quantize(a):
 
 def _kv_write(cache, l: int, index, new):
     """Store ``new`` at ``cache[l][index]`` in place; an int8 cache stores
-    the quantized values and their scales."""
+    the quantized values and their scales. A tensor ``index`` is the
+    decode step's slot, [1] on the device: ``new`` [B, 1, kh, D] goes to
+    that slot of every row without the host reading it."""
     if isinstance(cache, QuantKV):
         q, s = _kv_quantize(new)
-        cache.q[l][index] = q
-        cache.s[l][index] = s
+        pairs = ((cache.q[l], q), (cache.s[l], s))
     else:
-        cache[l][index] = new
+        pairs = ((cache[l], new),)
+    for dst, src in pairs:
+        if isinstance(index, torch.Tensor):
+            dst.index_copy_(1, index, src)
+        else:
+            dst[index] = src
 
 
 # ---------------------------------------------------------------------------
@@ -559,8 +565,9 @@ def qwen3_prefill(params, embeds, attn_mask, cfg, kv_max_len=None,
     return _logits(params, x[:, -1, :], cfg), kv
 
 
-def decode_bias(kv: KVCache, slot: int, valid_from):
-    """[B, 1, S] f32: 0 on slots [valid_from, slot], -1e30 elsewhere."""
+def decode_bias(kv: KVCache, slot, valid_from):
+    """[B, 1, S] f32: 0 on slots [valid_from, slot], -1e30 elsewhere;
+    ``slot`` [1] on the device."""
     j = torch.arange(kv.max_len, device=valid_from.device)[None, :]
     visible = (j >= valid_from[:, None]) & (j <= slot)
     return torch.where(visible, 0.0, NEG_INF).to(torch.float32)[:, None, :]
@@ -647,30 +654,35 @@ def _rope(positions, cfg, dtype):
     return cos[:, :, None, :], sin[:, :, None, :]
 
 
-def qwen3_decode_step(params, kv: KVCache, token_embed, slot: int, position,
+def qwen3_decode_step(params, kv: KVCache, token_embed, slot, position,
                       valid_from, cfg):
     """One generation step.
 
-    token_embed [B, H]; ``slot`` (int) is the cache slot written; position
-    [B] the rope position; valid_from [B] the first valid slot. Returns
-    (logits [B, vocab] f32, the same cache updated in place)."""
+    token_embed [B, H]; ``slot`` is the cache slot written, the same for
+    every row: [1] int64 on the device, or an int, which becomes one;
+    position [B] the rope position; valid_from [B] the first valid slot.
+    Returns (logits [B, vocab] f32, the same cache updated in place).
+    Nothing here reads a device value on the host, so a CUDA graph can
+    capture the step (``.decode_graph``)."""
+    if isinstance(slot, int):
+        slot = torch.full((1,), slot, dtype=torch.int64,
+                          device=token_embed.device)
     if "q8_mega" in params and token_embed.shape[0] == 1 and kv.head_major:
         return _mega_decode_step(params, kv, token_embed, slot, position,
                                  valid_from, cfg), kv
     x = token_embed[:, None, :]
     cos, sin = _rope(position[:, None], cfg, x.dtype)
     logits = _layer_stack(params, kv, x, cos, sin,
-                          decode_bias(kv, slot, valid_from),
-                          (slice(None), slice(slot, slot + 1)), cfg)
+                          decode_bias(kv, slot, valid_from), slot, cfg)
     return logits[:, 0], kv
 
 
-def _mega_decode_step(params, kv: KVCache, token_embed, slot: int, position,
+def _mega_decode_step(params, kv: KVCache, token_embed, slot, position,
                       valid_from, cfg):
     """The b = 1 step through K5 (JAX :1511-1546): the kernel attends the
     current token in registers and returns its k/v rows, written here at
-    ``slot`` in the cache's dtype. The bias hides the slot itself
-    (``valid_from <= j < slot``)."""
+    ``slot`` ([1] on the device) in the cache's dtype. The bias hides the
+    slot itself (``valid_from <= j < slot``)."""
     layers = params["layers"]
     x0 = token_embed.to(torch.float32)
     nhb0 = rms_norm(x0, layers["input_ln"][0], cfg.rms_eps).to(torch.bfloat16)
@@ -684,8 +696,8 @@ def _mega_decode_step(params, kv: KVCache, token_embed, slot: int, position,
         layers["k_norm"], cos, sin, bias, kv.k, kv.v, layers["qkv_w"],
         layers["o_w"], layers["gate_up_w"], layers["down_w"],
         params["lm_head_q"], cfg.rms_eps)
-    kv.k[:, :, slot] = k_new.to(kv.k.dtype)
-    kv.v[:, :, slot] = v_new.to(kv.v.dtype)
+    kv.k.index_copy_(2, slot, k_new[:, :, None].to(kv.k.dtype))
+    kv.v.index_copy_(2, slot, v_new[:, :, None].to(kv.v.dtype))
     return logits[:, :cfg.vocab_size]
 
 

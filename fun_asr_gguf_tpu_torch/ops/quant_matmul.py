@@ -417,6 +417,12 @@ def q8_layer_head_fused_plain(xm, resid, post_w, final_w, o_w: Q8Weight,
                                   down_w, head_w, eps)
 
 
+def fused_head_on() -> bool:
+    """Whether ``FUNASR_Q8_FUSED_HEAD`` is set and not ``"0"``, as it reads
+    now."""
+    return os.environ.get("FUNASR_Q8_FUSED_HEAD", "0") != "0"
+
+
 def q8_layer_head_fused(xm, resid, post_w, final_w, o_w: Q8Weight,
                         gu_w: Q8Weight, down_w: Q8Weight, head_w: Q8Weight,
                         eps: float):
@@ -429,7 +435,7 @@ def q8_layer_head_fused(xm, resid, post_w, final_w, o_w: Q8Weight,
     996-1003``). The knob decides on both devices, so the CPU runs the
     path the card runs; JAX on the CPU (``use_pallas=False``) takes its
     fused reference whatever the knob says."""
-    if os.environ.get("FUNASR_Q8_FUSED_HEAD", "0") == "0":
+    if not fused_head_on():
         return None
     if xm.device.type == "cpu":
         return q8_layer_head_fused_plain(xm, resid, post_w, final_w, o_w,

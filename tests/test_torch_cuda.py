@@ -1335,3 +1335,136 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
         qp.p2_walk(xm.float(), res, pw, nw, ws)
     with pytest.raises(ValueError):                    # qkv of another width
         qp.p2_walk(xm, res, pw, nw, ws[:3] + [tqm.layer(ws[3], 0)])
+
+
+# ---------------------------------------------------------------------------
+# the decode step's CUDA graph (models/decode_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 40
+
+
+def _graph_setup(dev, route, kv_int8=False, seed=3):
+    """Full-width params of ``route`` and a prefilled one-row state (the
+    decode-graph probe's), on the card: (params, cfg, state)."""
+    from fun_asr_gguf_tpu_torch.models.config import Qwen3Config
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    cfg = Qwen3Config()
+    params = gp.decode_params(dev, route, cfg)
+    return params, cfg, gp.prefilled(dev, params, cfg, kv_int8, seed=seed)
+
+
+def _graph_tokens(dev, n, seed, vocab):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (n, 1), generator=g, device=dev)
+
+
+def _same_kv(a, b):
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    return all(torch.equal(x, y)
+               for x, y in zip(dg._tensors(a), dg._tensors(b)))
+
+
+GRAPH_ROUTES = [("q8_0", False), ("q8_0", True), ("int8", False),
+                ("int8", True), ("mega", False), ("q8i", False)]
+
+
+@pytest.mark.parametrize("route,kv_int8", GRAPH_ROUTES)
+def test_decode_graph_replays_are_eager_steps(dev, route, kv_int8):
+    """40 replays give the logits and cache of 40 eager steps, bit for bit,
+    and add to the launch counters what the eager steps add; a second
+    state of the shape captures nothing."""
+    from fun_asr_gguf_tpu_torch import profiling
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, first = _graph_setup(dev, route, kv_int8, seed=1)
+    toks = _graph_tokens(dev, GRAPH_STEPS, 3, cfg.vocab_size)
+    graphs = dg.DecodeGraphs()
+    gp.graph_step(graphs, params, first, toks[0], cfg)      # captures
+    eager = gp.prefilled(dev, params, cfg, kv_int8, seed=2)
+    graphed = gp.clone(eager)
+    assert eager.kv.head_major is (route == "mega")
+    named = profiling.counters()
+    launches = dg.counts()[0]
+    got = []
+    for t in toks:
+        gp.graph_step(graphs, params, graphed, t, cfg)
+        got.append(graphed.logits.clone())
+    torch.cuda.synchronize()
+    replayed = {k: v - launches[k] for k, v in dg.counts()[0].items()}
+    after = profiling.counters()
+    assert after["decode.graph_captures"] == named["decode.graph_captures"]
+    assert after["decode.graph_replays"] == \
+        named["decode.graph_replays"] + GRAPH_STEPS
+    launches = dg.counts()[0]
+    for i, t in enumerate(toks):
+        gp.eager_step(params, eager, t, cfg)
+        assert torch.isfinite(eager.logits).all()
+        assert torch.equal(got[i], eager.logits), i
+    assert _same_kv(graphed.kv, eager.kv)
+    eagerly = {k: v - launches[k] for k, v in dg.counts()[0].items()}
+    assert replayed == eagerly and any(eagerly.values())
+
+
+def test_decode_graph_second_request_captures_nothing(dev):
+    """generate_chunk on a second state of the same shape replays every
+    step through the engine's graphs and captures nothing."""
+    from fun_asr_gguf_tpu_torch import profiling
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import generate as tg
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, _ = _graph_setup(dev, "q8_0")
+    graphs = dg.DecodeGraphs()
+    for seed in (1, 2):
+        state = gp.prefilled(dev, params, cfg, False, seed=seed)
+        before = profiling.counters()
+        tg.generate_chunk(params, state, cfg, 0.4, 1.0, 50, chunk_len=16,
+                          stop_tokens=(), graphs=graphs)
+        now = profiling.counters()
+        grew = {k: now.get(k, 0) - before.get(k, 0) for k in (
+            "decode.steps", "decode.graph_replays", "decode.graph_captures")}
+        assert grew["decode.steps"] == grew["decode.graph_replays"] == 16
+        assert grew["decode.graph_captures"] == (1 if seed == 1 else 0)
+
+
+def test_decode_graph_second_live_state_keeps_its_cache(dev):
+    """Two live states of one shape take turns through one graph: each
+    stays equal to its own eager steps."""
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, _ = _graph_setup(dev, "q8_0")
+    toks = _graph_tokens(dev, 12, 5, cfg.vocab_size)
+    refs = [gp.prefilled(dev, params, cfg, False, seed=s) for s in (1, 2)]
+    states = [gp.clone(r) for r in refs]
+    graphs = dg.DecodeGraphs()
+    for turn, k in enumerate([0, 1, 0, 1]):
+        for t in toks[3 * turn:3 * turn + 3]:
+            gp.eager_step(params, refs[k], t, cfg)
+            gp.graph_step(graphs, params, states[k], t, cfg)
+        for s, r in zip(states, refs):
+            if s.step:
+                assert torch.equal(s.logits, r.logits), turn
+                assert _same_kv(s.kv, r.kv), turn
+        assert states[1 - k].kv is not states[k].kv
+
+
+def test_decode_graph_takes_the_cache_after_verify_rounds(dev):
+    """Verify rounds, spec_to_gen, then replays: equal to eager steps from
+    the same converted state."""
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, state = _graph_setup(dev, "q8_0", seed=4)
+    spec = tsp.spec_init(state)
+    draft = _graph_tokens(dev, 32, 6, cfg.vocab_size).reshape(1, 32)
+    tsp.spec_generate_chunk(params, spec, draft, cfg, 0.4, 1.0, 50,
+                            spec_k=8, chunk_len=16, stop_tokens=(),
+                            limit=6)
+    got = tsp.spec_to_gen(spec)
+    ref = gp.clone(got)
+    graphs = dg.DecodeGraphs()
+    for t in _graph_tokens(dev, 12, 7, cfg.vocab_size):
+        gp.eager_step(params, ref, t, cfg)
+        gp.graph_step(graphs, params, got, t, cfg)
+        assert torch.equal(got.logits, ref.logits)
+    assert _same_kv(got.kv, ref.kv)

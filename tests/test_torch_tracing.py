@@ -295,7 +295,7 @@ def test_trace_kept_pairs_trace_calls_with_launch_counters():
 
 @pytest.mark.parametrize("cell, names", [
     ("nano-q8_0.clip60", ["step_host_ms", "step_wait_ms", "aborted_pct",
-                          "host_syncs_per_token"]),
+                          "host_syncs_per_token", "decode_graph_pct"]),
     ("nano-int8.short", ["round_host_ms", "spec_tokens_per_round"])])
 def test_traced_rehearsal_prints_the_new_metrics(monkeypatch, cell, names):
     from bench_torch import harness
