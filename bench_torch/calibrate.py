@@ -35,7 +35,9 @@ def main(argv=None):
     import torch
     from bench_torch import harness
     if args.rehearse:
-        device, model = torch.device("cpu"), harness.TINY
+        device = torch.device("cpu")
+        model = harness.tiny_model(harness.load_cell(harness.ROOT,
+                                                     args.workload)[2])
     elif torch.cuda.is_available():
         device, model = torch.device("cuda", 0), None
     else:
@@ -46,7 +48,8 @@ def main(argv=None):
         run = argparse.Namespace(workload=args.workload, seed=int(seed),
                                  seconds=0.0, trace=0,
                                  t_start=time.perf_counter())
-        harness.run(run, device, model=model, calibrate=args.requests)
+        harness.run(run, device, model=model, requests=args.requests,
+                    calibrate=True)
     return 0
 
 

@@ -21,6 +21,7 @@ import gc
 import importlib.util
 import json
 import os
+import pkgutil
 import resource
 import statistics
 import sys
@@ -31,7 +32,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import correct, devtrace, traffic, weights
+from . import arch, correct, devtrace, traffic, weights
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -39,7 +40,7 @@ PROFILE_S = 10.0       # device-traced requests after the window, at least
 HOST_PROFILE_S = 1.0   # host-and-device-traced span for the idle gaps
 WARM_TOKENS = 80       # the warm-up's output: a verify probe and a chunk
 
-# HybridConfig.tiny(): the CPU rehearsal's shapes
+# HybridConfig.tiny(): the CPU rehearsal's shapes; its decoder is qwen3's
 TINY = {
     "encoder": {"input_size": 560, "d_model": 64, "heads": 4, "ffn_dim": 128,
                 "num_blocks": 2, "tp_blocks": 1, "kernel_size": 11,
@@ -49,11 +50,14 @@ TINY = {
     "ctc": {"adaptor": {"in_dim": 64, "out_dim": 64, "ffn_dim": 128,
                         "n_layers": 1, "heads": 4, "downsample": 1,
                         "ln_eps": 1e-12}, "vocab_size": 101},
-    "llm": {"hidden": 64, "n_layers": 2, "q_heads": 4, "kv_heads": 2,
-            "head_dim": 16, "ffn_dim": 128, "vocab_size": 512,
-            "rope_theta": 10000.0, "rms_eps": 1e-06, "tie_embeddings": True,
-            "max_position": 40960, "arch": "qwen3", "qk_norm": True},
+    "llm": arch.of({"arch": "qwen3"}).tiny_llm(),
 }
+
+
+def tiny_model(cfg):
+    """The CPU rehearsal's shapes for ``cfg``: TINY's encoder, adaptor and
+    CTC with the LLM of its decoder architecture's ``tiny_llm()``."""
+    return dict(TINY, llm=arch.of(cfg["model"]["llm"]).tiny_llm())
 
 
 def _json(path):
@@ -98,14 +102,17 @@ def reader(name):
 
 
 def counters():
-    """The program's kernel launch counters, by ``module.attribute``."""
-    from fun_asr_gguf_tpu_torch.ops import (flash_attention, flash_decode,
-                                            quant_matmul)
-    mods = {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "quant_matmul": quant_matmul}
-    return {f"{m}.{a}": getattr(mod, a) for m, mod in mods.items()
-            for a in dir(mod) if a.endswith("launches")
-            and isinstance(getattr(mod, a), int)}
+    """The program's kernel launch counters, by ``module.attribute``: every
+    int attribute with ``launches`` in its name of every module under
+    ``fun_asr_gguf_tpu_torch.ops``."""
+    from fun_asr_gguf_tpu_torch import ops
+    found = {}
+    for m in pkgutil.walk_packages(ops.__path__, ops.__name__ + "."):
+        short = m.name.removeprefix(ops.__name__ + ".")
+        found.update({f"{short}.{a}": v for a, v in
+                      vars(importlib.import_module(m.name)).items()
+                      if "launches" in a and type(v) is int})
+    return found
 
 
 class Spans:
@@ -254,13 +261,17 @@ def _np_seed(seed, k):
     np.random.seed(int(np.random.SeedSequence([seed, k]).generate_state(1)[0]))
 
 
-def run(args, device, model=None, out=sys.stdout, calibrate=None):
-    """The whole run; returns the exit code. ``model`` replaces the
+def run(args, device, model=None, out=None, requests=None,
+        calibrate=False):
+    """The whole run; returns the exit code. The line goes to ``out``, by
+    default standard output as it is at the call. ``model`` replaces the
     configuration's shapes (the CPU rehearsal's tiny model). With
-    ``calibrate`` (a request count) the window serves the sequence's
-    first ``calibrate`` requests, and the line holds the readings of the
-    program and of the control (``calibrate.py``)."""
+    ``requests`` (a count) the window serves the sequence's first
+    ``requests`` requests, whatever ``args.seconds`` says. With
+    ``calibrate`` the line holds the readings of the program and of the
+    control (``calibrate.py``) in place of the result."""
     t_start = args.t_start
+    out = sys.stdout if out is None else out
     bench, cell, cfg, mix, limits = load_cell(ROOT, args.workload)
     cfg = dict(cfg)
     if model is not None:
@@ -319,8 +330,8 @@ def run(args, device, model=None, out=sys.stdout, calibrate=None):
         before = counters()
         records, t0 = [], time.perf_counter()
         for req in seq:
-            if calibrate:
-                if req.index >= calibrate:
+            if requests is not None:
+                if req.index >= requests:
                     break
             elif records and time.perf_counter() - t0 >= args.seconds:
                 break

@@ -6,21 +6,19 @@ imports nothing of the program: frontend (mean removal, pre-emphasis
 Hz, log(+1e-7), LFR 7/6), the SANM encoder (sqrt(d) scaling, sinusoidal
 positions, 4-head masked attention plus the FSMN memory, 1 + 49 + 20
 layers and their norms), the adaptor and the CTC head (linear-ReLU-linear
-and pre-norm transformer blocks), and Qwen3-0.6B (RMSNorm, per-head
-q/k norms, half-split rope, grouped-query causal attention, SwiGLU, the
-tied head; the draw's norm scales are 1). The window is padded to the
-configuration's ``segment_pad_seconds`` as the program pads it, and the
-prompt is the program's ChatML prompt in byte-level ids.
+and pre-norm transformer blocks), and the LLM decoder of the
+configuration's architecture (``arch/<arch>.py``'s ``Decoder``). The
+window is padded to the configuration's ``segment_pad_seconds`` as the
+program pads it, and the prompt is the program's ChatML prompt in
+byte-level ids.
 
-The weights are the seed's (``weights.draw``), in the configuration's
-stated format: the decoder's q8_0 values as stored; for ``int8``,
-per-output-channel int8 quantized from the bf16-loaded weights (absmax /
-127, half to even, bf16 scale) and a per-vocab int8 head (f32 scale);
-for ``q8_0`` the head re-quantized to q8_0 from the bf16-loaded
-embedding (ggml's rounding). Everything else runs in float32 with TF32
-off. ``act="fp8"`` is the control: the input and the output of every
-product rounded to float8 e4m3 with a per-row scale, the precision below
-bf16.
+The weights are the seed's (``weights.draw``); the decoder takes them in
+the configuration's stated format, with the format helpers here:
+``q8_0_dequant`` (the values as stored), ``int8_rows`` (per-output-channel
+int8, absmax / 127, half to even) and ``q8_0_requant`` (ggml's q8_0
+rounding). Everything runs in float32 with TF32 off. ``act="fp8"`` is
+the control: the input and the output of every product rounded to
+float8 e4m3 with a per-row scale (``fp8``), the precision below bf16.
 """
 
 import math
@@ -28,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import weights
+from . import arch, weights
 
 PROMPT_PREFIX = ("<|im_start|>system\nYou are a helpful assistant."
                  "<|im_end|>\n<|im_start|>user\n语音转写：")
@@ -53,7 +51,7 @@ def byte_ids(text):
     return ids
 
 
-def _fp8(x):
+def fp8(x):
     s = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 448.0
     return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
 
@@ -62,7 +60,7 @@ def _round_away(x):
     return torch.sign(x) * torch.floor(x.abs() + 0.5)
 
 
-def _q8_0_requant(w):
+def q8_0_requant(w):
     """ggml's q8_0 of rows ``w`` [n, k] f32: f16 scale amax / 127, values
     rounded half away from zero against the unrounded scale."""
     b = w.reshape(w.shape[0], -1, weights.QK)
@@ -74,7 +72,13 @@ def _q8_0_requant(w):
     return (q * d16).reshape(w.shape)
 
 
-def _int8_rows(w, scale_dtype):
+def q8_0_dequant(q, d):
+    """The f32 values of q8_0 pairs: ``q`` int8 [..., k], ``d`` [..., k /
+    32]."""
+    return q.float() * d.float().repeat_interleave(weights.QK, -1)
+
+
+def int8_rows(w, scale_dtype):
     """Per-row (output channel) int8 of ``w`` [n, k]: absmax / 127, half
     to even, the scale stored in ``scale_dtype``."""
     s = w.abs().amax(dim=-1, keepdim=True) / 127.0
@@ -92,31 +96,14 @@ class Reference:
         enc, dec = weights.draw(self.model, seed, device)
         self.enc = {k: v.float() for k, v in enc.items()}
         del enc
-        fmt = cfg["decoder_weights"]
-        llm = self.model["llm"]
-
-        def deq(q, d):
-            return q.float() * d.float().repeat_interleave(weights.QK, -1)
-        self.layers = []
-        for i in range(llm["n_layers"]):
-            lay = {}
-            for name in weights.decoder_shapes(llm):
-                w = deq(dec[name][0][i], dec[name][1][i])
-                if fmt == "int8":
-                    w = _int8_rows(w.bfloat16().float(), torch.bfloat16)
-                lay[name] = w
-            self.layers.append(lay)
-        self.embed = deq(*dec["token_embd"])
-        loaded = self.embed.bfloat16().float()
-        self.head = (_q8_0_requant(loaded) if fmt == "q8_0"
-                     else _int8_rows(loaded, torch.float32))
+        self.decoder = arch.of(self.model["llm"]).Decoder(cfg, dec, device)
         del dec
 
     # -- products -------------------------------------------------------------
     def _mm(self, x, w):
         """x [..., k] @ w [k, n] (encoder layout)."""
         if self.act == "fp8":
-            return _fp8(_fp8(x) @ w)
+            return fp8(fp8(x) @ w)
         return x @ w
 
     def _lin(self, x, p):
@@ -258,55 +245,15 @@ class Reference:
 
     # -- decoder ------------------------------------------------------------
     def prompt(self, audio_embd):
-        pre = self.embed[byte_ids(PROMPT_PREFIX)]
-        suf = self.embed[byte_ids(PROMPT_SUFFIX)]
+        pre = self.decoder.embed[byte_ids(PROMPT_PREFIX)]
+        suf = self.decoder.embed[byte_ids(PROMPT_SUFFIX)]
         return torch.cat([pre, audio_embd, suf])
-
-    def _dmm(self, x, w):
-        """x [..., k] @ w[n, k]^T."""
-        if self.act == "fp8":
-            return _fp8(_fp8(x) @ w.t())
-        return x @ w.t()
 
     def decoder_logits(self, prompt, tokens):
         """The next-token logits after ``prompt`` [P, h] and each prefix of
         ``tokens`` [n]: rows P-1 ... P+n-1 of one causal pass → [n + 1,
         vocab]; row i predicts token i."""
-        llm = self.model["llm"]
-        eps, hd = llm["rms_eps"], llm["head_dim"]
-        qh, kh = llm["q_heads"], llm["kv_heads"]
-        x = torch.cat([prompt, self.embed[tokens]])
-        t = x.shape[0]
-        pos = torch.arange(t, dtype=torch.float32, device=self.dev)
-        inv = 1.0 / (llm["rope_theta"] ** (torch.arange(
-            hd // 2, dtype=torch.float32, device=self.dev) / (hd // 2)))
-        ang = torch.cat([pos[:, None] * inv] * 2, dim=-1)
-        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-        causal = torch.full((t, t), float("-inf"), device=self.dev).triu(1)
-
-        def rms(a):
-            return a * torch.rsqrt(a.square().mean(-1, keepdim=True) + eps)
-
-        def rope(a):
-            half = hd // 2
-            return a * cos + torch.cat([-a[..., half:], a[..., :half]],
-                                       -1) * sin
-        for lay in self.layers:
-            h = rms(x)
-            q = rope(rms(self._dmm(h, lay["attn_q"]).reshape(t, qh, hd)))
-            k = rope(rms(self._dmm(h, lay["attn_k"]).reshape(t, kh, hd)))
-            v = self._dmm(h, lay["attn_v"]).reshape(t, kh, hd)
-            k = k.repeat_interleave(qh // kh, dim=1)
-            v = v.repeat_interleave(qh // kh, dim=1)
-            s = torch.einsum("qhd,khd->hqk", q, k) * hd ** -0.5 + causal
-            o = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), v)
-            x = x + self._dmm(o.reshape(t, qh * hd), lay["attn_output"])
-            h = rms(x)
-            x = x + self._dmm(F.silu(self._dmm(h, lay["ffn_gate"]))
-                              * self._dmm(h, lay["ffn_up"]),
-                              lay["ffn_down"])
-        rows = rms(x[prompt.shape[0] - 1:])
-        return self._dmm(rows, self.head)
+        return self.decoder.logits(prompt, tokens, self.act)
 
 
 class _layers:

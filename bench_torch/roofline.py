@@ -7,10 +7,10 @@ as they lie in the card's memory (q8_0: 32 int8 + an f32 scale per 32
 weights, the program's layout; per-channel int8: 1 byte a weight and a
 bf16 scale a channel, the head's scale f32; bf16 2 bytes).
 
-    python3 bench_torch/roofline.py      # prints the counts of both configs
+    python3 -m bench_torch.roofline      # prints every configuration's counts
 """
 
-import math
+from . import arch
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -39,15 +39,6 @@ def bound(n_bytes, n_ops, kind="bf16"):
 # decoder
 # ---------------------------------------------------------------------------
 
-def _layer_mats(llm):
-    """(out, in) of the packed products of one decoder layer."""
-    h, f = llm["hidden"], llm["ffn_dim"]
-    qd = llm["q_heads"] * llm["head_dim"]
-    kd = llm["kv_heads"] * llm["head_dim"]
-    return {"qkv": (qd + 2 * kd, h), "o": (h, qd), "gate_up": (2 * f, h),
-            "down": (h, f)}
-
-
 def weight_bytes(out, inp, fmt):
     if fmt == "q8_0":
         return out * inp * Q8_BYTES_PER_WEIGHT
@@ -60,8 +51,9 @@ def k4_bytes(llm, with_qkv=True, m=1):
     """K4, the fused per-layer q8_0 chain, at ``m`` rows: o, gate_up and
     down (and the next layer's qkv, K4a) in q8_0, the attention rows, the
     residual rows and the norm scales in, the residual (and qkv) rows out,
-    all bf16 (PERF.md section 6: 17.69 / 12.98 MB of weights at m = 1)."""
-    mats = _layer_mats(llm)
+    all bf16 (PERF.md section 6: 17.69 / 12.98 MB of weights at m = 1).
+    The layer's packed products are its architecture's ``layer_mats``."""
+    mats = arch.of(llm).layer_mats(llm)
     names = ["o", "gate_up", "down"] + (["qkv"] if with_qkv else [])
     w = sum(weight_bytes(*mats[n], "q8_0") for n in names)
     h, qd = llm["hidden"], llm["q_heads"] * llm["head_dim"]
@@ -71,34 +63,16 @@ def k4_bytes(llm, with_qkv=True, m=1):
 
 
 def k4_ops(llm, with_qkv=True, m=1):
-    mats = _layer_mats(llm)
+    mats = arch.of(llm).layer_mats(llm)
     names = ["o", "gate_up", "down"] + (["qkv"] if with_qkv else [])
     return sum(2 * m * o * i for o, i in (mats[n] for n in names))
 
 
 def decode_token(llm, fmt, visible):
     """(bytes, operations) one decode step must move and compute at batch
-    1 with ``visible`` cache slots: every decoder weight in the format, the
-    head (q8_0: padded vocab; int8: per-vocab f32 scales; tied), the norm
-    scales, the embedding row, and the visible bf16 K and V of every
-    layer."""
-    n_l, h = llm["n_layers"], llm["hidden"]
-    mats = _layer_mats(llm)
-    w = n_l * sum(weight_bytes(o, i, fmt) for o, i in mats.values())
-    vocab = llm["vocab_size"]
-    if fmt == "q8_0":
-        head = math.ceil(vocab / HEAD_PAD) * HEAD_PAD * h * \
-            Q8_BYTES_PER_WEIGHT
-    elif fmt == "int8":
-        head = vocab * h + vocab * 4
-    else:
-        head = vocab * h * BF16
-    norms = (n_l * (2 * h + 2 * llm["head_dim"]) + h) * BF16
-    kv_row = 2 * n_l * llm["kv_heads"] * llm["head_dim"] * BF16
-    n_bytes = w + head + norms + h * BF16 + visible * kv_row
-    params = n_l * sum(o * i for o, i in mats.values()) + vocab * h
-    attn = 4 * n_l * llm["q_heads"] * llm["head_dim"] * visible
-    return n_bytes, 2 * params + attn
+    1 with ``visible`` cache slots, as the decoder's architecture counts
+    them (``arch/<arch>.py``)."""
+    return arch.of(llm).decode_token(llm, fmt, visible)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +144,10 @@ def main():
         model, llm = cfg["model"], cfg["model"]["llm"]
         fmt = cfg["decoder_weights"]
         print(f"{cfg['name']}:")
-        for qkv, label in ((True, "K4a"), (False, "K4b")):
-            mats = _layer_mats(llm)
+        # K4's counts where the configuration's route launches it
+        k4 = "quant_matmul.fused_launches" in cfg["route"]["launched"]
+        for qkv, label in ((True, "K4a"), (False, "K4b")) if k4 else ():
+            mats = arch.of(llm).layer_mats(llm)
             w = sum(weight_bytes(*mats[n], "q8_0") for n in
                     ["o", "gate_up", "down"] + (["qkv"] if qkv else []))
             print(f"  {label} m=1: {k4_bytes(llm, qkv) / 1e6:.2f} MB "

@@ -36,7 +36,8 @@ def test_control_is_not_correct(card, workload):
     args = argparse.Namespace(workload=workload, seed=2 ** 31 + 101,
                               seconds=0.0, trace=0,
                               t_start=time.perf_counter())
-    harness.run(args, card, out=out, calibrate=CELLS[workload])
+    harness.run(args, card, out=out, requests=CELLS[workload],
+                calibrate=True)
     read = json.loads(out.getvalue().strip().splitlines()[-1])
     limits = harness.load_cell(harness.ROOT, workload)[4]
     assert read["tokens"] > 0

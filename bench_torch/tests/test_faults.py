@@ -9,8 +9,14 @@ greedy gap sees) and a decode step that leaves the state as it was come
 out not correct. A CTC id altered where the head produces it is run on
 the card at the cell's own size (the tiny head's 101 logits span less
 than the cell's limit; the full head's 60515 span tens of times more),
-and comes out not correct there; without a card it skips. (The cells serve one request at a time on
-one chip: there is no batch to halve and no exchange between chips.)
+and comes out not correct there; without a card it skips. (The cells
+serve one request at a time on one chip: there is no batch to halve and
+no exchange between chips.)
+On the CPU the window serves the sequence's first ``CPU_REQUESTS``
+requests, three sampled and one greedy, however fast the host is.
+
+A run through ``run.py`` into which JAX or the JAX package was loaded
+exits 3 and prints no result.
 
     python -m pytest bench_torch/tests/test_faults.py -q
 """
@@ -18,16 +24,19 @@ one chip: there is no batch to halve and no exchange between chips.)
 import argparse
 import io
 import json
+import sys
 import time
+import types
 
 import pytest
 import torch
 
-from bench_torch import harness
+from bench_torch import harness, run
 from fun_asr_gguf_tpu_torch.core import model_manager
 from fun_asr_gguf_tpu_torch.models import generate
 
 WORKLOAD = "nano-q8_0.clip60"
+CPU_REQUESTS = 4    # the mix's first group of four: its last is greedy
 
 
 def _run(seed, workload=WORKLOAD, device=None):
@@ -35,7 +44,9 @@ def _run(seed, workload=WORKLOAD, device=None):
     args = argparse.Namespace(workload=workload, seed=seed, seconds=5.0,
                               trace=0, t_start=time.perf_counter())
     if device is None:
-        harness.run(args, torch.device("cpu"), model=harness.TINY, out=out)
+        cfg = harness.load_cell(harness.ROOT, workload)[2]
+        harness.run(args, torch.device("cpu"), model=harness.tiny_model(cfg),
+                    out=out, requests=CPU_REQUESTS)
     else:
         harness.run(args, device, out=out)
     return json.loads(out.getvalue().strip().splitlines()[-1])
@@ -108,3 +119,40 @@ def test_altered_ctc_id_fails_correct_on_the_card(monkeypatch):
     assert res["correct"] is False, res["compared"]
     assert res["compared"]["ctc_gap"]["value"] > \
         res["compared"]["ctc_gap"]["limit"], res["compared"]
+
+
+def test_foreign_modules_are_compared_by_whole_top_level_names():
+    names = ["fun_asr_gguf_tpu_torch", "fun_asr_gguf_tpu_torch.ops",
+             "jaxtyping", "flaxen", "torch", "jax", "jax.numpy",
+             "jaxlib.xla_client", "flax.linen", "fun_asr_gguf_tpu",
+             "fun_asr_gguf_tpu.models.qwen3"]
+    assert run.foreign(names) == [
+        "flax.linen", "fun_asr_gguf_tpu", "fun_asr_gguf_tpu.models.qwen3",
+        "jax", "jax.numpy", "jaxlib.xla_client"]
+
+
+@pytest.mark.parametrize("name", [None, "jax", "jaxlib", "flax",
+                                  "fun_asr_gguf_tpu.models"])
+def test_run_that_loads_jax_prints_no_result(monkeypatch, capsys, name):
+    """A stand-in module put into ``sys.modules`` where the program draws
+    a token, inside the window: the run ends 3, with no result. What
+    other tests of this process loaded of JAX is out of ``sys.modules``
+    for the run and back after it."""
+    for loaded in run.foreign(list(sys.modules)):
+        monkeypatch.delitem(sys.modules, loaded)
+    inner = generate.sample_residual
+
+    def sample(*args, **kwargs):
+        if name is not None and name not in sys.modules:
+            monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+        return inner(*args, **kwargs)
+    monkeypatch.setattr(generate, "sample_residual", sample)
+    rc = run.entry(["--workload", WORKLOAD, "--seed", str(2 ** 31 + 31),
+                    "--seconds", "0", "--rehearse"])
+    out, err = capsys.readouterr()
+    if name is None:
+        line = json.loads(out.strip().splitlines()[-1])
+        assert rc == 0 and line["attempted"] == 1, err[-2000:]
+    else:
+        assert rc == 3 and '"correct"' not in out, out[-2000:]
+        assert err.strip().splitlines()[-1].endswith(name)

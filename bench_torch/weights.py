@@ -5,14 +5,16 @@ device, a few large draws), so the harness makes them once to write the
 checkpoint directory the program loads, and again after the window for
 the plain reference. The checkpoint is what ``create_asr_engine`` reads:
 ``config.json``, ``encoder.safetensors`` (bf16, the encoder's served
-type), ``decoder.gguf`` (qwen3, q8_0 matmul weights and embedding, f32
-norms) and ``tokens.txt``. The writers are the formats' own, written
+type), ``decoder.gguf`` (the GGUF of the configuration's decoder
+architecture, written by ``arch/<arch>.py`` on this module's GGUF v3
+layout) and ``tokens.txt``. The writers are the formats' own, written
 here: nothing of the program makes the weights.
 
 Draws (the checkpoint writer's): encoder, adaptor and CTC leaves uniform
-+-0.05 in bf16 but the LayerNorm scales, which are 1; the decoder's q8_0
-int8 values uniform over [-128, 127] with f16 block scales uniform in
-[2e-4, 3.5e-4]; RMSNorm scales 1.
++-0.05 in bf16 but the LayerNorm scales, which are 1; then the
+decoder's tensors (``decoder_tensors`` of its architecture, in order) in
+q8_0: int8 values uniform over [-128, 127] with f16 block scales
+uniform in [2e-4, 3.5e-4].
 """
 
 import base64
@@ -23,6 +25,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from . import arch
 
 QK = 32                 # q8_0 block
 GGUF_ALIGN = 32
@@ -97,23 +101,14 @@ def encoder_shapes(model) -> Dict[str, Tuple[int, ...]]:
     return dict(sorted(flat.items()))
 
 
-def decoder_shapes(llm) -> Dict[str, Tuple[int, int]]:
-    """GGUF name template -> [out, in] of the q8_0 layer matrices."""
-    h = llm["hidden"]
-    qd, kd = llm["q_heads"] * llm["head_dim"], llm["kv_heads"] * llm["head_dim"]
-    return {"attn_q": (qd, h), "attn_k": (kd, h), "attn_v": (kd, h),
-            "attn_output": (h, qd), "ffn_gate": (llm["ffn_dim"], h),
-            "ffn_up": (llm["ffn_dim"], h), "ffn_down": (h, llm["ffn_dim"])}
-
-
 # ---------------------------------------------------------------------------
 # the draw
 # ---------------------------------------------------------------------------
 
 def draw(model, seed: int, device):
     """All weights of the seed on ``device``: (encoder leaves bf16 by flat
-    name, decoder q8_0 pairs ``{name: (q int8 [L, out, in], d f16 [L, out,
-    in / 32])}`` with ``token_embd`` unstacked [vocab, hidden])."""
+    name, decoder q8_0 pairs ``{name: (q int8 [*shape], d f16 [*shape[:-1],
+    shape[-1] / 32])}`` of the architecture's ``decoder_tensors``)."""
     g = torch.Generator(device=device).manual_seed(int(seed))
     shapes = encoder_shapes(model)
     sizes = {k: int(np.prod(s)) for k, s in shapes.items()
@@ -127,10 +122,7 @@ def draw(model, seed: int, device):
         else:
             enc[k] = flat[off:off + sizes[k]].view(s)
             off += sizes[k]
-    llm = model["llm"]
-    n_l = llm["n_layers"]
-    mats = {name: (n_l, o, i) for name, (o, i) in decoder_shapes(llm).items()}
-    mats["token_embd"] = (llm["vocab_size"], llm["hidden"])
+    mats = arch.of(model["llm"]).decoder_tensors(model["llm"])
     n_w = sum(int(np.prod(s)) for s in mats.values())
     q_all = torch.randint(-128, 128, (n_w,), dtype=torch.int8, device=device,
                           generator=g)
@@ -184,7 +176,7 @@ def _kv(key, value):
     return out + struct.pack("<II", 4, int(value))
 
 
-def _q8_bytes(q, d):
+def q8_0_bytes(q, d):
     """ggml block_q8_0 rows: per 32 values an f16 scale, then the int8s."""
     rows = q.reshape(-1, q.shape[-1] // QK, QK).view(torch.uint8)
     scales = d.reshape(-1, q.shape[-1] // QK, 1).contiguous().view(
@@ -192,37 +184,12 @@ def _q8_bytes(q, d):
     return torch.cat([scales, rows], dim=-1).cpu().numpy().tobytes()
 
 
-def write_gguf(path, llm, dec):
-    """A llama.cpp qwen3 GGUF v3: tied embedding, q8_0 matmul weights."""
-    h, n_l = llm["hidden"], llm["n_layers"]
-    kvs = [("general.architecture", "qwen3"),
-           ("qwen3.embedding_length", h), ("qwen3.block_count", n_l),
-           ("qwen3.attention.head_count", llm["q_heads"]),
-           ("qwen3.attention.head_count_kv", llm["kv_heads"]),
-           ("qwen3.attention.key_length", llm["head_dim"]),
-           ("qwen3.attention.value_length", llm["head_dim"]),
-           ("qwen3.feed_forward_length", llm["ffn_dim"]),
-           ("qwen3.rope.freq_base", float(llm["rope_theta"])),
-           ("qwen3.attention.layer_norm_rms_epsilon", float(llm["rms_eps"])),
-           ("qwen3.context_length", llm["max_position"]),
-           ("general.alignment", GGUF_ALIGN)]
-    ones_h = np.ones(h, np.float32).tobytes()
-    ones_d = np.ones(llm["head_dim"], np.float32).tobytes()
-    tensors = [("token_embd.weight", 8, dec["token_embd"][0].shape,
-                lambda: _q8_bytes(*dec["token_embd"])),
-               ("output_norm.weight", 0, (h,), lambda: ones_h)]
-    for i in range(n_l):
-        tensors += [(f"blk.{i}.attn_norm.weight", 0, (h,), lambda: ones_h),
-                    (f"blk.{i}.ffn_norm.weight", 0, (h,), lambda: ones_h)]
-        if llm["qk_norm"]:
-            tensors += [(f"blk.{i}.attn_q_norm.weight", 0,
-                         (llm["head_dim"],), lambda: ones_d),
-                        (f"blk.{i}.attn_k_norm.weight", 0,
-                         (llm["head_dim"],), lambda: ones_d)]
-        for name in decoder_shapes(llm):
-            q, d = dec[name]
-            tensors.append((f"blk.{i}.{name}.weight", 8, q.shape[1:],
-                            lambda q=q[i], d=d[i]: _q8_bytes(q, d)))
+def write_gguf_v3(path, kvs, tensors):
+    """A GGUF v3 file: the metadata ``kvs`` [(key, str | float | int)] and
+    then ``general.alignment``; ``tensors`` [(name, ggml type (0 f32, 8
+    q8_0), shape in torch's order, a thunk of its bytes)], each aligned
+    to ``GGUF_ALIGN``."""
+    kvs = list(kvs) + [("general.alignment", GGUF_ALIGN)]
 
     def nbytes(gtype, shape):
         n = int(np.prod(shape))
@@ -256,7 +223,8 @@ def write_checkpoint(root, model, seed: int, device) -> str:
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump(_port_config(model), f)
     write_safetensors_bf16(os.path.join(ckpt, "encoder.safetensors"), enc)
-    write_gguf(os.path.join(ckpt, "decoder.gguf"), model["llm"], dec)
+    arch.of(model["llm"]).write_gguf(os.path.join(ckpt, "decoder.gguf"),
+                                     model["llm"], dec)
     n = model["ctc"]["vocab_size"]
     with open(os.path.join(ckpt, "tokens.txt"), "w", encoding="utf-8") as f:
         for i in range(n):
