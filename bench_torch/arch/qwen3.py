@@ -113,10 +113,13 @@ class Decoder:
         self.head = (reference.q8_0_requant(loaded) if fmt == "q8_0"
                      else reference.int8_rows(loaded, torch.float32))
 
-    def logits(self, prompt, tokens, act=None):
+    def logits(self, prompt, tokens, act=None, routes=None):
         """The next-token logits after ``prompt`` [P, h] and each prefix of
-        ``tokens`` [n]: rows P-1 ... P+n-1 of one causal pass → [n + 1,
-        vocab]; row i predicts token i."""
+        ``tokens`` [n]: rows P-1 ... P+n-1 of one causal pass → ([n + 1,
+        vocab], {}); row i predicts token i. A dense decoder has no
+        ``routes`` to follow."""
+        if routes is not None:
+            raise ValueError("qwen3 is dense: it has no routes to follow")
         llm = self.llm
         eps, hd = llm["rms_eps"], llm["head_dim"]
         qh, kh = llm["q_heads"], llm["kv_heads"]
@@ -151,7 +154,7 @@ class Decoder:
                          * _dmm(h, lay["ffn_up"], act),
                          lay["ffn_down"], act)
         rows = rms(x[prompt.shape[0] - 1:])
-        return _dmm(rows, self.head, act)
+        return _dmm(rows, self.head, act), {}
 
 
 def decode_token(llm, fmt, visible):

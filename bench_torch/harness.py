@@ -191,9 +191,17 @@ class Spans:
 
     def _keep_logits(self, att, state):
         """A copy of the next-token logits after the prefill and after
-        each chunk, with the number of chunks before it."""
+        each chunk, with the number of chunks before it; of a state that
+        carries ``routes`` (a routed decoder, ``arch/__init__.py``) also
+        the latest copy of them, with the slot of the first position and
+        the prompt's length. Copies on the device: nothing waits."""
         att["logits"].append((len(att["chunks"]),
                               state.logits[0].detach().clone()))
+        routes = getattr(state, "routes", None)
+        if routes is not None:
+            att["routes"] = (routes.detach().clone(),
+                             state.valid_from[0].clone(),
+                             state.prompt_len[0].clone())
 
 
 def serve(engine, spans, req, wav, sync):
@@ -247,12 +255,21 @@ def dump(path, records, t0):
 
 def _attempt(att):
     """{"tokens": [ids], "logits": [(position of the token they predict,
-    logits on the host)]} of one attempt."""
+    logits on the host)]} of one attempt; where the decoder routes, also
+    "routes": the experts of each position it ran, prompt and every
+    served token (each one is fed back), [routed layers, positions, k]
+    on the host."""
     toks = [t[0][t[0] >= 0].tolist() for t in att["chunks"]]
     done = np.cumsum([0] + [len(t) for t in toks])
-    return {"tokens": [t for c in toks for t in c],
-            "logits": [(int(done[k]), lg.float().cpu())
-                       for k, lg in att["logits"]]}
+    out = {"tokens": [t for c in toks for t in c],
+           "logits": [(int(done[k]), lg.float().cpu())
+                      for k, lg in att["logits"]]}
+    if "routes" in att:
+        routes, first, prompt = att["routes"]
+        first = int(first)
+        out["routes"] = routes[:, first:first + int(prompt)
+                               + len(out["tokens"])].cpu()
+    return out
 
 
 def _np_seed(seed, k):

@@ -96,7 +96,9 @@ class Reference:
         enc, dec = weights.draw(self.model, seed, device)
         self.enc = {k: v.float() for k, v in enc.items()}
         del enc
-        self.decoder = arch.of(self.model["llm"]).Decoder(cfg, dec, device)
+        module = arch.of(self.model["llm"])
+        self.routed = getattr(module, "ROUTED", False)
+        self.decoder = module.Decoder(cfg, dec, device)
         del dec
 
     # -- products -------------------------------------------------------------
@@ -249,11 +251,14 @@ class Reference:
         suf = self.decoder.embed[byte_ids(PROMPT_SUFFIX)]
         return torch.cat([pre, audio_embd, suf])
 
-    def decoder_logits(self, prompt, tokens):
+    def decoder_logits(self, prompt, tokens, routes=None, act=None):
         """The next-token logits after ``prompt`` [P, h] and each prefix of
-        ``tokens`` [n]: rows P-1 ... P+n-1 of one causal pass → [n + 1,
-        vocab]; row i predicts token i."""
-        return self.decoder.logits(prompt, tokens, self.act)
+        ``tokens`` [n]: rows P-1 ... P+n-1 of one causal pass → ([n + 1,
+        vocab], info); row i predicts token i. ``act`` (``self.act`` where
+        None) is the precision of this pass; a routed decoder follows
+        ``routes`` where they reach and returns its decisions in ``info``,
+        as ``arch/__init__.py`` says."""
+        return self.decoder.logits(prompt, tokens, act or self.act, routes)
 
 
 class _layers:

@@ -171,6 +171,8 @@ def _kv(key, value):
     if isinstance(value, str):
         v = value.encode()
         return out + struct.pack("<IQ", 8, len(v)) + v
+    if isinstance(value, bool):
+        return out + struct.pack("<IB", 7, value)
     if isinstance(value, float):
         return out + struct.pack("<If", 6, value)
     return out + struct.pack("<II", 4, int(value))
@@ -185,10 +187,10 @@ def q8_0_bytes(q, d):
 
 
 def write_gguf_v3(path, kvs, tensors):
-    """A GGUF v3 file: the metadata ``kvs`` [(key, str | float | int)] and
-    then ``general.alignment``; ``tensors`` [(name, ggml type (0 f32, 8
-    q8_0), shape in torch's order, a thunk of its bytes)], each aligned
-    to ``GGUF_ALIGN``."""
+    """A GGUF v3 file: the metadata ``kvs`` [(key, str | bool | float |
+    int)] and then ``general.alignment``; ``tensors`` [(name, ggml type (0
+    f32, 8 q8_0), shape in torch's order, a thunk of its bytes)], each
+    aligned to ``GGUF_ALIGN``."""
     kvs = list(kvs) + [("general.alignment", GGUF_ALIGN)]
 
     def nbytes(gtype, shape):
