@@ -17,8 +17,9 @@ Counterpart of ``fun_asr_gguf_tpu/core/model_manager.py``. The init stages:
    ``warmup_all_buckets``), and with ``speculative`` one speculative chunk and the
    plain chunk that follows ``spec_to_gen``, on the configured cache
    (``kv_cache_dtype``; builds the CUDA kernels on first use, and on a
-   card captures the decode step's graph, which the manager keeps in
-   ``decode_graphs``, ``models/decode_graph.py``);
+   card captures the decode step's graph and the verify round's, which
+   the manager keeps in ``decode_graphs``, ``models/decode_graph.py`` and
+   ``models/speculative.py``);
 5. hotword manager (+ the opt-in rule corrector and correction RAG).
 """
 
@@ -302,7 +303,8 @@ class ModelManager:
         return spec_generate_chunk(
             self.llm_params, state, draft_ids, self.hybrid_cfg.llm,
             temperature, top_p, top_k, spec_k=self.config.spec_k,
-            chunk_len=chunk_len, stop_tokens=self.stop_tokens, limit=limit)
+            chunk_len=chunk_len, stop_tokens=self.stop_tokens, limit=limit,
+            graphs=self.decode_graphs)
 
     def _warmup(self):
         sr = self.config.sample_rate

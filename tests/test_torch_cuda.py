@@ -1468,3 +1468,161 @@ def test_decode_graph_takes_the_cache_after_verify_rounds(dev):
         gp.graph_step(graphs, params, got, t, cfg)
         assert torch.equal(got.logits, ref.logits)
     assert _same_kv(got.kv, ref.kv)
+
+
+# ---------------------------------------------------------------------------
+# the verify round's CUDA graph (models/speculative.py)
+# ---------------------------------------------------------------------------
+
+VERIFY_ROUNDS = 16
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.4])
+@pytest.mark.parametrize("route,kv_int8", [("q8_0", False), ("q8_0", True),
+                                           ("int8", False), ("q8i", False)])
+def test_verify_graph_replays_are_eager_rounds(dev, route, kv_int8,
+                                               temperature):
+    """16 replayed rounds give the tokens, carry, cache and generator state
+    of 16 eager rounds, bit for bit, and add to the launch counters what
+    the eager rounds add; a second state of the shape captures nothing."""
+    from fun_asr_gguf_tpu_torch import profiling
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, base = _graph_setup(dev, route, kv_int8, seed=1)
+    draft = gp.verify_draft(dev, cfg.vocab_size)
+    graphs = dg.DecodeGraphs()
+    gp.verify_chunk(graphs, params, tsp.spec_init(gp.clone(base)), draft,
+                    cfg, temperature, 1)                         # captures
+    graphed = tsp.spec_init(gp.clone(base))
+    eager = tsp.spec_init(gp.clone(base))
+    named = profiling.counters()
+    launches = dg.counts()[0]
+    got = gp.verify_chunk(graphs, params, graphed, draft, cfg, temperature,
+                          VERIFY_ROUNDS)
+    torch.cuda.synchronize()
+    replayed = {k: v - launches[k] for k, v in dg.counts()[0].items()}
+    after = profiling.counters()
+    assert after["spec.graph_captures"] == named["spec.graph_captures"]
+    assert after["spec.graph_replays"] == \
+        named["spec.graph_replays"] + VERIFY_ROUNDS
+    launches = dg.counts()[0]
+    want = gp.verify_chunk(None, params, eager, draft, cfg, temperature,
+                           VERIFY_ROUNDS)
+    torch.cuda.synchronize()
+    eagerly = {k: v - launches[k] for k, v in dg.counts()[0].items()}
+    assert int(eager.rounds[0]) == VERIFY_ROUNDS
+    assert torch.isfinite(eager.logits).all()
+    assert torch.equal(got, want)
+    assert gp.same_rounds(graphed, eager)
+    assert replayed == eagerly and any(eagerly.values())
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.4])
+@pytest.mark.parametrize("route,kv_int8", [("q8_0", False), ("q8_0", True),
+                                           ("int8", False), ("q8i", False)])
+def test_verify_graph_rounds_are_the_parent_rounds(dev, route, kv_int8,
+                                                   temperature):
+    """16 replayed rounds give the tokens, carry, cache and generator state
+    of 16 rounds of the eager chunk that drew inside the round and baked
+    its numbers in (``tests/test_torch_verify_graph.py``'s copy): the same
+    draws, and the temperature's division with the same bits."""
+    from test_torch_verify_graph import parent_chunk
+
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, base = _graph_setup(dev, route, kv_int8, seed=1)
+    draft = gp.verify_draft(dev, cfg.vocab_size)
+    graphs = dg.DecodeGraphs()
+    gp.verify_chunk(graphs, params, tsp.spec_init(gp.clone(base)), draft,
+                    cfg, temperature, 1)                         # captures
+    graphed = tsp.spec_init(gp.clone(base))
+    parent = tsp.spec_init(gp.clone(base))
+    got = gp.verify_chunk(graphs, params, graphed, draft, cfg, temperature,
+                          VERIFY_ROUNDS)
+    want = parent_chunk(params, parent, draft, cfg, temperature, 1.0, 50,
+                        spec_k=gp.SPEC_K, chunk_len=gp.CHUNK, stop_tokens=(),
+                        limit=VERIFY_ROUNDS)
+    assert int(parent.rounds[0]) == VERIFY_ROUNDS
+    assert torch.equal(got, want)
+    assert gp.same_rounds(graphed, parent)
+
+
+def test_verify_graph_second_request_captures_nothing(dev):
+    """spec_generate_chunk on a second state of the same shape replays
+    every round through the engine's graphs and captures nothing."""
+    from fun_asr_gguf_tpu_torch import profiling
+    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
+    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
+    params, cfg, _ = _graph_setup(dev, "q8_0")
+    draft = gp.verify_draft(dev, cfg.vocab_size)
+    graphs = dg.DecodeGraphs()
+    for seed in (1, 2):
+        state = tsp.spec_init(gp.prefilled(dev, params, cfg, False,
+                                           seed=seed))
+        before = profiling.counters()
+        tsp.spec_generate_chunk(params, state, draft, cfg, 0.4, 1.0, 50,
+                                spec_k=8, chunk_len=64, stop_tokens=(),
+                                limit=VERIFY_ROUNDS, graphs=graphs)
+        now = profiling.counters()
+        grew = {k: now.get(k, 0) - before.get(k, 0) for k in (
+            "spec.rounds", "spec.graph_replays", "spec.graph_captures")}
+        assert grew["spec.rounds"] == VERIFY_ROUNDS
+        assert grew["spec.graph_captures"] == (1 if seed == 1 else 0)
+        assert grew["spec.graph_replays"] == VERIFY_ROUNDS - grew[
+            "spec.graph_captures"]
+
+
+def test_engine_captures_its_graphs_only_at_warm_up(dev, tmp_path):
+    """An engine built with ``warmup=True`` captures its verify and decode
+    graphs while it warms up; two requests after it, greedy and sampled,
+    replay every verify round and decode step and capture nothing."""
+    import base64
+    import dataclasses
+
+    import numpy as np
+
+    from fun_asr_gguf_tpu_torch import create_asr_engine, profiling
+    from fun_asr_gguf_tpu_torch.audio import write_wav
+    from fun_asr_gguf_tpu_torch.models.config import HybridConfig
+    from fun_asr_gguf_tpu_torch.models.loaders import write_random_checkpoint
+    full = HybridConfig()
+    small = HybridConfig(       # Qwen3-0.6B's and the encoder's widths
+        encoder=dataclasses.replace(full.encoder, num_blocks=2, tp_blocks=1),
+        adaptor=full.adaptor,
+        ctc=dataclasses.replace(full.ctc, adaptor=dataclasses.replace(
+            full.ctc.adaptor, n_layers=1)),
+        llm=dataclasses.replace(full.llm, n_layers=2))
+    ckpt = str(tmp_path / "ckpt")
+    cfg = write_random_checkpoint(ckpt, small, seed=0)
+    with open(tmp_path / "ckpt" / "tokens.txt", "w", encoding="utf-8") as f:
+        for i in range(cfg.ctc.vocab_size):
+            ch = chr(0x4E00 + i % 20000) if i < cfg.ctc.vocab_size - 1 \
+                else "<blk>"
+            f.write(f"{base64.b64encode(ch.encode()).decode()} {i}\n")
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, np.random.default_rng(0).normal(size=48000) * 0.05, 16000)
+    names = ("spec.rounds", "spec.graph_replays", "spec.graph_captures",
+             "decode.steps", "decode.graph_replays", "decode.graph_captures")
+    start = profiling.counters()
+    engine = create_asr_engine(ckpt, verbose=False, n_predict=24,
+                               segment_pad_seconds=4.0)
+    try:
+        built = profiling.counters()
+        for temperature in (0.0, 0.4):
+            res = engine.transcribe(wav, verbose=False,
+                                    temperature=temperature)
+            assert res.ctc_text and isinstance(res.text, str)
+        now = profiling.counters()
+    finally:
+        engine.cleanup()
+    warm = {k: built.get(k, 0) - start.get(k, 0) for k in names}
+    grew = {k: now.get(k, 0) - built.get(k, 0) for k in names}
+    assert warm["spec.graph_captures"] >= 1, warm
+    assert warm["decode.graph_captures"] >= 1, warm
+    assert grew["spec.graph_captures"] == grew["decode.graph_captures"] == 0
+    assert grew["spec.rounds"] >= 16, grew
+    assert grew["spec.graph_replays"] == grew["spec.rounds"], grew
+    assert grew["decode.graph_replays"] == grew["decode.steps"], grew

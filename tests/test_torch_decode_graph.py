@@ -194,14 +194,23 @@ def own_counters(monkeypatch):
         monkeypatch.setattr(mod, name, getattr(mod, name))
 
 
+def eager_capture_of(forward, device, pool=None):
+    """``decode_graph.capture`` as eager calls: the first runs now, each
+    replay runs ``forward`` again, into the same output tensor where it
+    returns one (a verify round returns none: it writes its buffers)."""
+    out = forward()
+    if out is None:
+        return forward, None, ({}, {}), None
+    out = out.clone()
+    return (lambda: out.copy_(forward())), out, ({}, {}), None
+
+
 @pytest.fixture
 def eager_capture(monkeypatch):
-    """``decode_graph.capture`` as eager calls: the first runs now, each
-    replay runs ``forward`` again into the same output tensor."""
-    def capture(forward, device):
-        out = forward().clone()
-        return (lambda: out.copy_(forward())), out, ({}, {}), None
-    monkeypatch.setattr(dg, "capture", capture)
+    """``decode_graph.capture`` replaced by :func:`eager_capture_of`, in
+    both modules that capture."""
+    monkeypatch.setattr(dg, "capture", eager_capture_of)
+    monkeypatch.setattr(tsp, "capture", eager_capture_of)
 
 
 def _graph_count(name):
