@@ -99,7 +99,7 @@
 #include <mutex>
 #include <utility>
 
-#include "q8_gemv.cuh"
+#include "q8_warp.cuh"
 #include "q8_stream.cuh"
 #include "split_kv.cuh"
 

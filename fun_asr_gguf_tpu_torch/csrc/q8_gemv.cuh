@@ -1,7 +1,6 @@
-// Device helpers shared by the q8_0 kernels: the warp-per-row q8_0 GEMV
-// (the P2 probe q8_probe.cu, P5(b) in probes.cu),
-// the RMSNorm of an f32 row into shared memory, the warp reductions and
-// the loads they use (with q8_stream.cuh and split_kv.cuh).
+// The warp-per-row q8_0 GEMV of the probes (the P2 probe q8_probe.cu,
+// P5(b) in probes.cu), the RMSNorm of an f32 row into shared memory and
+// the loads they use. No path kernel includes it.
 //
 // Numerics: every q*d is formed in f32 and rounded to bf16 once (the JAX
 // reference dequant); activations entering a product are bf16; sums
@@ -16,25 +15,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "q8_warp.cuh"
+
 namespace q8 {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
 enum class Src { kShared, kReadOnly, kL2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float deq(int8_t q, float s) {
   // q*d in f32, rounded to bf16 once (the reference dequant), back to f32

@@ -27,8 +27,8 @@
 // conversion unit runs at a fraction of the FP32 rate), and two weights
 // share one bf16x2 rounding; two units a warp are in flight at a time.
 //
-// Numerics as q8_gemv.cuh: q*d in f32 rounded to bf16 once, bf16 x, f32
-// sums.
+// Numerics: q*d in f32 rounded to bf16 once (the JAX reference dequant),
+// bf16 x, f32 sums.
 
 #pragma once
 
@@ -36,7 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "q8_gemv.cuh"
+#include "q8_warp.cuh"
 
 namespace q8s {
 

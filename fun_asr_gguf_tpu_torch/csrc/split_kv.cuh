@@ -44,7 +44,7 @@
 
 #include <type_traits>
 
-#include "q8_gemv.cuh"
+#include "q8_warp.cuh"
 
 namespace skv {
 

@@ -1,53 +1,63 @@
-"""CUDA graphs of the plain decode step, and the machinery the verify
-round's graphs (:mod:`.speculative`) share with them.
+"""CUDA graphs of the decode loop: the plain decode step
+(:func:`.generate.step_graph`) and the verify round
+(:func:`.speculative.round_graph`), captured, owned and handed back the
+same way.
 
 On a card, :func:`.generate.generate_chunk` does not enqueue each decode
-step's ~900 launches from Python: it replays a CUDA graph of
-``embed_tokens`` + ``qwen3_decode_step``, captured once per params, cfg,
-cache layout (batch, capacity, dtypes; int8, head-major) and
-``FUNASR_Q8_FUSED_HEAD`` route, whatever kernels that route runs (K4 / K4c
-+ K2 + K1, K7 + K6, K5, or the int8 and dense products). The sampling
-around it stays eager. The CPU runs the same step eagerly.
+step's ~900 launches from Python, nor :func:`.speculative.run_rounds`
+each round's: each replays a CUDA graph (:class:`Graph`) of its
+iteration, whatever kernels the route runs (K4 / K4c + K2 + K1, K7 + K6,
+K5, or the int8 and dense products). The CPU runs the same iterations
+eagerly. A graph reads and writes buffers of its own, made outside the
+graphs' memory pool, and the KV cache of its layout:
 
-A graph reads and writes buffers of its own, fixed at capture:
+- at a chunk's start, :meth:`Graph.begin` makes the state the owner of
+  the cache and copies in the state's fields that the forward reads and
+  the chunk's values;
+- each iteration the loop writes the iteration's inputs into the
+  buffers (the plain step's token, slot and position; the round's
+  uniforms) and calls the graph once: a capture the first time, a replay
+  after;
+- at the chunk's end, :meth:`Graph.end` hands the state copies of what
+  the graph keeps (the plain step's logits; the round's carry).
 
-- its inputs, the fed-back token [B], the slot [1], the rope position [B]
-  and ``valid_from`` [B]. Each step writes the first three in three small
-  launches, from the sampled token and the host's step counter, with no
-  sync, and ``valid_from`` when another state steps through the graph;
-- its KV cache, of the state's layout, which the layout's decode graph
-  and verify graphs share (:class:`SharedCache`) with one memory pool. A
-  state's first step or round through a graph of the layout copies the
-  state's cache in (one device copy a tensor) and points ``state.kv`` at
-  it: the state owns the shared cache from then on, and a state that no
-  longer points at it has given it up (``spec_to_gen`` hands it on so). A
-  second state that steps through a graph of the layout first hands the
-  owner, while it lives and holds the cache, copies of the cache and of
-  its logits, so two live states never share a cache;
-- its logits: ``state.logits`` is the graph's output, which the next
-  replay overwrites; the sampler reads it before then, on the same stream.
+So no state field is a graph's buffer between chunks. A forward returns
+the buffers it makes (the plain step's logits, in the pool: the next
+replay overwrites them, and the sampler reads them before then, on the
+same stream), or nothing where it writes its buffers in place (the
+round).
 
-The graphs of a layout allocate in one pool: what a state holds across
-replays is a buffer made outside the pool or a decode graph's logits,
-which a dispossessed owner gets a copy of before another graph replays,
-so a graph may reuse what another left in the pool.
+The decode graph and the verify graphs of one cache layout (batch,
+capacity, dtypes; int8, head-major) share one static cache and one memory
+pool (:class:`SharedCache`). A state's first chunk through a graph of the
+layout copies the state's cache in (one device copy a tensor) and points
+``state.kv`` at it: the state owns the shared cache from then on, and a
+state that no longer points at it has given it up (``spec_to_gen`` hands
+it on so). A second state that enters a graph of the layout first hands
+the owner, while it lives and holds the cache, a copy of it, so two live
+states never share a cache.
 
-Capture runs the step once eagerly on a side stream, which fills the
+Capture runs the forward once eagerly on a side stream, which fills the
 kernels' plan tables, ticket buffers and workspaces, then captures it on
-that stream. The kernels' Python wrappers count their launches while
-they are captured, though nothing runs: those increments are taken back
-and added again on every replay, so the launch counters count what ran on
-the card. Counters ``decode.graph_captures`` and ``decode.graph_replays``.
+that stream. A forward that writes its buffers in place has then run:
+its eager run is the call. One that returns its output is replayed at
+once, so that the output is the graph's. The kernels' Python wrappers
+count their launches while they are captured, though nothing runs: those
+increments are taken back and added again on every replay, so the launch
+counters count what ran on the card. Counters ``<kind>.graph_captures``
+and ``<kind>.graph_replays`` (``decode``, ``spec``).
 """
 
 import collections
+import functools
+import types
 import weakref
 
 import torch
 
 from .. import profiling
 from ..ops.quant_matmul import fused_head_on
-from .qwen3 import KVCache, QuantKV, embed_tokens, qwen3_decode_step
+from .qwen3 import KVCache, QuantKV
 
 LIMIT = 4          # graphs an engine keeps, the least recently used dropped
 
@@ -135,7 +145,6 @@ class SharedCache:
         self.kv = _empty_like(kv)
         self.pool = (torch.cuda.graph_pool_handle()
                      if next(_tensors(self.kv)).is_cuda else None)
-        self.outputs = []           # graph outputs a state's logits may be
         self._owner = None          # weakref to the state owning self.kv
 
     def adopt(self, state):
@@ -149,76 +158,93 @@ class SharedCache:
                 raise ValueError("this state holds the graphs' cache, "
                                  "which another live state owns")
             owner.kv = _copy(_empty_like(self.kv), self.kv)
-            if any(owner.logits is out for out in self.outputs):
-                owner.logits = owner.logits.clone()
         if state.kv is not self.kv:
             state.kv = _copy(self.kv, state.kv)
         self._owner = weakref.ref(state)
 
 
-class DecodeGraph:
-    """One captured decode step and its buffers (the module's doc)."""
+def put(bufs, values):
+    """Write ``values`` ({name: a tensor or a number}) into the buffers of
+    those names in ``bufs``."""
+    for name, value in values.items():
+        if isinstance(value, torch.Tensor):
+            getattr(bufs, name).copy_(value)
+        else:
+            getattr(bufs, name).fill_(value)
 
-    def __init__(self, params, cfg, shared: SharedCache, state):
-        b = state.logits.shape[0]
-        dev = state.logits.device
-        self.params, self.cfg, self.shared = params, cfg, shared
-        self.token, self.position, self.valid_from = (
-            torch.zeros(b, dtype=torch.int64, device=dev) for _ in range(3))
-        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.logits = None
+
+class Graph:
+    """One captured iteration of the decode loop (the module's doc):
+    ``forward(bufs)`` over buffers made outside the pool: ``bufs.kv``, the
+    shared cache; one like each of ``state``'s fields of ``reads``, which
+    :meth:`begin` copies in; and ``bufs`` ({name: tensor}, the
+    iteration's inputs and the chunk's values). :meth:`end` hands back the
+    buffers of ``keeps``; ``kind`` names the counters."""
+
+    def __init__(self, shared: SharedCache, kind: str, forward, state,
+                 bufs, reads, keeps):
+        self.shared, self.kind = shared, kind
+        self.reads, self.keeps = reads, keeps
+        self.bufs = types.SimpleNamespace(
+            kv=shared.kv, **bufs,
+            **{n: torch.empty_like(getattr(state, n)) for n in reads})
+        self.forward = functools.partial(forward, self.bufs)
+        self.ran = False            # whether the chunk called the graph
         self._replay = self._increments = self._keep = None
-        self._fed = None            # weakref to the state of valid_from
 
-    @property
-    def kv(self) -> KVCache:
-        return self.shared.kv
-
-    def forward(self):
-        """The captured step on the graph's buffers → logits [B, vocab]."""
-        return qwen3_decode_step(
-            self.params, self.kv, embed_tokens(self.params, self.token),
-            self.slot, self.position, self.valid_from, self.cfg)[0]
-
-    def step(self, state, token):
-        """Feed ``token`` [B] back and advance ``state`` by one step."""
+    def begin(self, state, **values):
+        """A chunk's start: ``state`` takes the shared cache; its fields of
+        ``reads`` and the chunk's ``values`` (:func:`put`) go into the
+        buffers."""
         self.shared.adopt(state)
-        if self._fed is None or self._fed() is not state:
-            self.valid_from.copy_(state.valid_from)
-            self._fed = weakref.ref(state)
-        self.token.copy_(token)
-        self.slot.fill_(state.prompt_slots + state.step)
-        torch.add(state.prompt_len, state.step, out=self.position)
+        put(self.bufs, {n: getattr(state, n) for n in self.reads})
+        put(self.bufs, values)
+        self.ran = False
+
+    def __call__(self):
+        """One iteration: the capture the first time, a replay after."""
+        self.ran = True
         if self._replay is None:
-            self._replay, self.logits, self._increments, self._keep = \
-                capture(self.forward, self.slot.device, self.shared.pool)
-            self.shared.outputs.append(self.logits)
-            profiling.count("decode.graph_captures")
+            self._replay, out, self._increments, self._keep = capture(
+                self.forward, next(_tensors(self.bufs.kv)).device,
+                self.shared.pool)
+            profiling.count(f"{self.kind}.graph_captures")
+            if out is None:
+                return
+            vars(self.bufs).update(out)
         self._replay()
         add(self._increments)
-        profiling.count("decode.graph_replays")
-        state.logits = self.logits
+        profiling.count(f"{self.kind}.graph_replays")
+
+    def end(self, state):
+        """A chunk's end: ``state`` gets copies of the buffers of
+        ``keeps``, where the chunk called the graph."""
+        if self.ran:
+            for n in self.keeps:
+                setattr(state, n, getattr(self.bufs, n).clone())
 
 
 class DecodeGraphs:
     """An engine's CUDA graphs: at most :data:`LIMIT`, by key (the
     module's doc), the least recently used dropped first. The graphs of
     one cache layout share a :class:`SharedCache` while any of them is
-    kept. A dropped graph's owner keeps its cache and logits, and its
-    next step captures anew."""
+    kept. A dropped graph's owner keeps its cache, and its next chunk
+    captures anew."""
 
     def __init__(self):
         self._graphs = collections.OrderedDict()
         self._shared = weakref.WeakValueDictionary()
 
-    def graph(self, params, cfg, state, kind, make):
-        """The graph of ``state``'s cache layout and of ``kind`` (what
-        else fixes the graph: a hashable), made by ``make(shared)`` when
-        there is none."""
+    def graph(self, params, cfg, state, key, make) -> Graph:
+        """The graph of ``state``'s cache layout and of ``key`` (what else
+        fixes the graph: a hashable), made by ``make(shared)`` when there
+        is none. :func:`.generate.step_graph` and
+        :func:`.speculative.round_graph` call it with a kind's ``key`` and
+        ``make``."""
         layout = (id(params), id(cfg), fused_head_on(),
                   tuple((tuple(t.shape), t.dtype)
                         for t in _tensors(state.kv)))
-        graph = self._graphs.pop(layout + (kind,), None)
+        graph = self._graphs.pop(layout + (key,), None)
         if graph is None:
             shared = self._shared.get(layout)
             if shared is None:
@@ -226,10 +252,5 @@ class DecodeGraphs:
             graph = make(shared)
             while len(self._graphs) >= LIMIT:
                 self._graphs.popitem(last=False)
-        self._graphs[layout + (kind,)] = graph
+        self._graphs[layout + (key,)] = graph
         return graph
-
-    def step(self, params, state, token, cfg):
-        """One decode step of ``state`` (on the card) through its graph."""
-        self.graph(params, cfg, state, "decode", lambda shared: DecodeGraph(
-            params, cfg, shared, state)).step(state, token)

@@ -9,8 +9,9 @@ row is done. On a card the host reads ``done`` without draining the
 queue: each step copies it to pinned memory right after the sampling,
 before the decode step, and the next step waits only for that copy, so
 the decode step it enqueued keeps the card busy meanwhile. On a card the
-decode step is one replay of a CUDA graph (:mod:`.decode_graph`); the CPU
-runs it eagerly. Each step is a ``decode.step`` span (``..profiling``) of
+decode step is one replay of a CUDA graph (:func:`step_graph`,
+:mod:`.decode_graph`), whose logits the next step samples; the CPU runs it
+eagerly. Each step is a ``decode.step`` span (``..profiling``) of
 ``decode.wait`` (that wait), ``decode.sample`` and ``decode.forward`` (the
 step's enqueue).
 
@@ -22,6 +23,7 @@ speculation guardrail handed the state over, :func:`..speculative.
 spec_to_gen`) is excluded from the chunk's first draw only (JAX :132-136).
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -29,7 +31,7 @@ import torch
 
 from ..ops.sampling import sample_residual
 from ..profiling import count, span
-from .decode_graph import DecodeGraphs
+from .decode_graph import DecodeGraphs, Graph
 from .qwen3 import KVCache, embed_tokens, qwen3_decode_step, qwen3_prefill
 
 RING = 30          # fuse window
@@ -91,6 +93,52 @@ def _distinct_count(ring):
     return 1 + (s[:, 1:] != s[:, :-1]).sum(dim=1)
 
 
+def count_token(state, rows, token, counted):
+    """The ring, counter and fuse update of one token a row: ``token`` [B]
+    enters ``state.ring`` and ``state.n_gen`` where ``counted``. Returns
+    the rows the fuse stops (the last RING counted ids hold
+    ≤ FUSE_DISTINCT distinct ones)."""
+    pos = state.n_gen % RING
+    cur = state.ring[rows, pos]
+    state.ring[rows, pos] = torch.where(counted, token, cur)
+    state.n_gen = state.n_gen + counted.to(torch.int64)
+    return counted & (state.n_gen > RING) & \
+        (_distinct_count(state.ring) <= FUSE_DISTINCT)
+
+
+def _step(params, cfg, bufs):
+    """The plain step on a graph's buffers → its logits [B, vocab]."""
+    return {"logits": qwen3_decode_step(
+        params, bufs.kv, embed_tokens(params, bufs.token), bufs.slot,
+        bufs.position, bufs.valid_from, cfg)[0]}
+
+
+def step_graph(graphs: DecodeGraphs, params, cfg, state) -> Graph:
+    """The plain step's graph of ``state``'s batch in ``graphs``
+    (:meth:`.decode_graph.DecodeGraphs.graph`). It reads the fed-back
+    token [B], the slot [1], the rope position [B] (written each step by
+    :func:`graphed_step`) and ``valid_from`` [B] (copied in at a chunk's
+    start), and keeps the logits."""
+    def make(shared):
+        b, dev = state.logits.shape[0], state.logits.device
+        bufs = {n: torch.zeros(size, dtype=torch.int64, device=dev)
+                for n, size in (("token", b), ("position", b), ("slot", 1))}
+        return Graph(shared, "decode", functools.partial(_step, params, cfg),
+                     state, bufs, reads=("valid_from",), keeps=("logits",))
+    return graphs.graph(params, cfg, state, "decode", make)
+
+
+def graphed_step(graph: Graph, state: GenState, token) -> torch.Tensor:
+    """Feed ``token`` [B] back and run ``state``'s next step through
+    ``graph`` (three small writes, no sync); returns the logits, the
+    graph's buffer."""
+    graph.bufs.token.copy_(token)
+    graph.bufs.slot.fill_(state.prompt_slots + state.step)
+    torch.add(state.prompt_len, state.step, out=graph.bufs.position)
+    graph()
+    return graph.bufs.logits
+
+
 def generate_chunk(params, state: GenState, cfg, temperature: float,
                    top_p: float, top_k: int = 50, chunk_len: int = 64,
                    stop_tokens: Tuple[int, ...] = (151643, 151645),
@@ -99,9 +147,24 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     """Run up to ``min(chunk_len, limit)`` steps, stopping once every row
     is done (JAX's ``cond``); returns the token buffer [B, chunk_len] (-1
     where a row was already done, or past the last step). ``state`` is
-    advanced in place. On a card the steps replay graphs of ``graphs``
+    advanced in place. On a card the steps replay a graph of ``graphs``
     (an engine's, so that its requests capture once; a new one
     otherwise)."""
+    graph = None
+    if state.logits.device.type == "cuda":
+        graph = step_graph(DecodeGraphs() if graphs is None else graphs,
+                           params, cfg, state)
+    return run_steps(params, state, cfg, temperature, top_p, top_k,
+                     chunk_len, stop_tokens, limit, graph)
+
+
+def run_steps(params, state: GenState, cfg, temperature: float,
+              top_p: float, top_k: int, chunk_len: int,
+              stop_tokens: Tuple[int, ...], limit: int = None,
+              graph: Graph = None) -> torch.Tensor:
+    """:func:`generate_chunk`'s steps through ``graph`` (of
+    :func:`step_graph`), or eagerly where it is None (the CPU's path; on a
+    card, the reference the graph is held to)."""
     b = state.logits.shape[0]
     dev = state.logits.device
     n_steps = chunk_len if limit is None else min(chunk_len, limit)
@@ -115,8 +178,9 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
     if dev.type == "cuda":
         done_host = torch.empty(b, dtype=torch.bool, pin_memory=True)
         copied = torch.cuda.Event()
-        if graphs is None:
-            graphs = DecodeGraphs()
+    if graph is not None:
+        graph.begin(state)
+    logits = state.logits
     with span("decode.chunk"):
         for t in range(n_steps):
             with span("decode.step"):
@@ -133,7 +197,7 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
                 with span("decode.sample"):
                     # sample_residual with no exclusion is sample_token; a
                     # pending exclusion is consumed by exactly one draw
-                    token = sample_residual(state.logits, state.generator,
+                    token = sample_residual(logits, state.generator,
                                             temperature, top_p, top_k,
                                             state.forbid if t == 0 else None)
                     if t == 0:
@@ -142,13 +206,7 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
                     is_stop = torch.isin(token, stops)
                     counted = active & ~is_stop
                     buf[:, t] = torch.where(active, token, -1)
-
-                    pos = state.n_gen % RING
-                    cur = state.ring[rows, pos]
-                    state.ring[rows, pos] = torch.where(counted, token, cur)
-                    state.n_gen = state.n_gen + counted.to(torch.int64)
-                    fused = counted & (state.n_gen > RING) & \
-                        (_distinct_count(state.ring) <= FUSE_DISTINCT)
+                    fused = count_token(state, rows, token, counted)
                     state.done = state.done | (active & is_stop) | fused
                     state.aborted = state.aborted | fused
                     if done_host is not None:
@@ -160,12 +218,15 @@ def generate_chunk(params, state: GenState, cfg, temperature: float,
                     # already done feed a dummy whose logits are never
                     # used)
                     fed = torch.where(active, token, 0)
-                    if dev.type == "cuda":
-                        graphs.step(params, state, fed, cfg)
+                    if graph is not None:
+                        logits = graphed_step(graph, state, fed)
                     else:
                         state.logits, state.kv = qwen3_decode_step(
                             params, state.kv, embed_tokens(params, fed),
                             p + state.step, state.prompt_len + state.step,
                             state.valid_from, cfg)
+                        logits = state.logits
                 state.step += 1
+    if graph is not None:
+        graph.end(state)
     return buf

@@ -27,24 +27,26 @@ round's uniforms from the generator before the round (the pending draw's
 and the temperature, ``top_p`` and ``limit`` are device scalars, so the
 round itself (:func:`_round`) reads no value on the host.
 
-On a card the round is one replay of a CUDA graph (:class:`VerifyGraph`),
-kept by the engine's :class:`.decode_graph.DecodeGraphs` beside the decode
-graph of the same cache layout, whose cache and memory pool it shares; it
-is keyed by what fixes its shapes (``spec_k``, ``top_k``, ``chunk_len``,
-the draft's length, the stop ids). Greedy and sampled rounds are one graph:
-the round takes the argmax where the temperature is <= 0, on the device.
-The graph copies the state's carry into buffers of its own at a chunk's
-start and hands copies back at its end. The CPU runs the same round
-eagerly. Each round is a ``spec.round`` span (``..profiling``) of
-``spec.sync`` (that read) and ``spec.forward``: on the CPU the verify
-pass, beside ``spec.draft`` and ``spec.accept``; on the card the replay,
-which holds all three.
+On a card the round is one replay of a CUDA graph (:func:`round_graph`,
+:mod:`.decode_graph`), kept by the engine's
+:class:`.decode_graph.DecodeGraphs` beside the decode graph of the same
+cache layout, whose cache and memory pool it shares; it is keyed by what
+fixes its shapes (``spec_k``, ``top_k``, ``chunk_len``, the draft's
+length, the stop ids). Greedy and sampled rounds are one graph: the round
+takes the argmax where the temperature is <= 0, on the device. The graph
+copies the state's carry into buffers of its own at a chunk's start and
+hands copies back at its end. The CPU runs the same round eagerly. Each
+round is a ``spec.round`` span (``..profiling``) of ``spec.sync`` (that
+read) and ``spec.forward``: on the CPU the verify pass, beside
+``spec.draft`` and ``spec.accept``; on the card the replay, which holds
+all three.
 Counters ``spec.rounds``, ``spec.graph_captures`` and
 ``spec.graph_replays``.
 """
 
 import contextlib
-import dataclasses
+import functools
+import types
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -52,8 +54,8 @@ import torch
 
 from ..ops.sampling import candidates, sample_drawn, warped_candidates
 from ..profiling import count, span
-from .decode_graph import DecodeGraphs, add, capture
-from .generate import (FUSE_DISTINCT, RING, GenState, _distinct_count)
+from .decode_graph import DecodeGraphs, Graph, put
+from .generate import GenState, count_token
 from .qwen3 import KVCache, embed_tokens, qwen3_verify_step
 
 NEG_BIG = 2 ** 30
@@ -153,42 +155,43 @@ def _lookup_draft(draft, last_tok, pending, cursor, spec_k: int):
     return d_tok, d_valid, start, has2 | has1
 
 
-def _round(params, st: SpecState, draft, t_next, buf, u_pend, u_acc, limit,
-           temperature, top_p, top_k: int, spec_k: int, stops, cfg,
+def _round(params, st: SpecState, io, top_k: int, spec_k: int, cfg,
            phase=span) -> torch.Tensor:
     """One verify round of every row of ``st``: pending draw, draft,
     verify pass, acceptance, emission, ring and fuse, advance. Rebinds
-    ``st``'s fields, writes ``st.kv``, ``st.ring`` and ``buf`` [B,
+    ``st``'s fields, writes ``st.kv``, ``st.ring`` and ``io.buf`` [B,
     chunk_len + 1] in place, and returns the new ``t_next`` (tokens
-    emitted in the chunk). ``u_pend`` [B, candidates] and ``u_acc`` [B,
-    spec_k] are the round's uniforms; ``limit``, ``temperature`` and
-    ``top_p`` are device scalars (rows are greedy where the temperature is
-    <= 0). Reads nothing on the host, so a CUDA graph can capture it;
-    ``phase`` names its three parts (a span each on the eager path)."""
+    emitted in the chunk). ``io`` holds :func:`_round_buffers`: ``u_pend``
+    [B, candidates] and ``u_acc`` [B, spec_k] are the round's uniforms;
+    ``limit``, ``temperature`` and ``top_p`` are device scalars (rows are
+    greedy where the temperature is <= 0). Reads nothing on the host, so a
+    CUDA graph can capture it; ``phase`` names its three parts (a span
+    each on the eager path)."""
     b = st.logits.shape[0]
     dev = st.logits.device
-    sink = buf.shape[1] - 1                 # column for non-emitted lanes
+    t_next, stops, temperature = io.t_next, io.stops, io.temperature
+    sink = io.buf.shape[1] - 1              # column for non-emitted lanes
     rows = torch.arange(b, device=dev)
     lanes = torch.arange(spec_k + 1, device=dev)
     greedy = temperature <= 0
-    active = ~st.done & (t_next < limit)
+    active = ~st.done & (t_next < io.limit)
     with phase("spec.draft"):
         # 1. pending: the token the plain loop would draw now (from the
         #    residual distribution after a rejected draft)
         pending = torch.where(
             greedy, torch.argmax(st.logits.to(torch.float32), dim=-1),
-            sample_drawn(st.logits, u_pend, temperature, top_p, top_k,
+            sample_drawn(st.logits, io.u_pend, temperature, io.top_p, top_k,
                          st.forbid))
         pend_stop = torch.isin(pending, stops)
 
         # 2. draft proposal; no speculation past a stop, for paused rows
         #    or past the budget; a stop id inside the draft ends it
         d_tok, d_valid, start, _ = _lookup_draft(
-            draft, st.last_tok, pending, st.cursor, spec_k)
+            io.draft, st.last_tok, pending, st.cursor, spec_k)
         d_valid &= (active & ~pend_stop)[:, None]
         d_valid &= torch.cumprod(
             (~torch.isin(d_tok, stops)).to(torch.int64), dim=1).bool()
-        d_valid &= (t_next[:, None] + lanes[None, 1:]) < limit
+        d_valid &= (t_next[:, None] + lanes[None, 1:]) < io.limit
 
     with phase("spec.forward"):
         # 3. one verify pass over [pending, d_1 .. d_K]
@@ -201,11 +204,11 @@ def _round(params, st: SpecState, draft, t_next, buf, u_pend, u_acc, limit,
     with phase("spec.accept"):
         # 4. acceptance of each drafted token, then the accepted prefix
         score = logits_v[:, :spec_k, :]
-        probs, idx = warped_candidates(score, temperature, top_p, top_k)
+        probs, idx = warped_candidates(score, temperature, io.top_p, top_k)
         p_d = torch.where(idx == d_tok[:, :, None], probs,
                           torch.zeros_like(probs)).sum(dim=-1)
         acc = torch.where(greedy, torch.argmax(score, dim=-1) == d_tok,
-                          u_acc < p_d)
+                          io.u_acc < p_d)
         acc &= d_valid
         a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
 
@@ -231,20 +234,15 @@ def _round(params, st: SpecState, draft, t_next, buf, u_pend, u_acc, limit,
         n_emit = torch.where(active, 1 + a, 0)
         emit = active[:, None] & (lanes[None, :] < n_emit[:, None])
         cols = torch.where(emit, t_next[:, None] + lanes[None, :], sink)
-        buf[rows[:, None], cols] = tok_seq
-        buf[:, sink] = -1
+        io.buf[rows[:, None], cols] = tok_seq
+        io.buf[:, sink] = -1
 
         # 7. ring, counters and the fuse, per emitted token
         fused = torch.zeros(b, dtype=torch.bool, device=dev)
         for i in range(spec_k + 1):
             tok = tok_seq[:, i]
-            counted = emit[:, i] & ~torch.isin(tok, stops)
-            pos = st.n_gen % RING
-            st.ring[rows, pos] = torch.where(counted, tok,
-                                             st.ring[rows, pos])
-            st.n_gen = st.n_gen + counted.to(torch.int64)
-            fused |= counted & (st.n_gen > RING) & \
-                (_distinct_count(st.ring) <= FUSE_DISTINCT)
+            fused |= count_token(st, rows, tok,
+                                 emit[:, i] & ~torch.isin(tok, stops))
         st.done = st.done | (active & pend_stop) | fused
         st.aborted = st.aborted | fused
 
@@ -264,82 +262,53 @@ CARRY = ("logits", "forbid", "slot_next", "pos_next", "ring", "n_gen",
          "done", "aborted", "last_tok", "cursor", "rounds")
 
 
-class VerifyGraph:
-    """One captured verify round and its buffers (the module's doc): the
-    carry, the draft, ``t_next``, the token buffer, the round's uniforms
-    and the device scalars, all made outside the graphs' pool, and the
-    cache of its :class:`.decode_graph.SharedCache`. Its first round runs
-    eagerly and is captured (:func:`.decode_graph.capture`); every later
-    round is a replay."""
+def _round_buffers(state: SpecState, draft_len: int, top_k: int,
+                   spec_k: int, chunk_len: int, stop_tokens):
+    """What a round reads and writes beside the carry, on ``state``'s
+    device: the draft, ``t_next``, the token buffer (a sink column last),
+    the device scalars, the uniforms and the stop ids."""
+    b, vocab = state.logits.shape
+    dev = state.logits.device
+    i64, f32 = ({"dtype": dtype, "device": dev}
+                for dtype in (torch.int64, torch.float32))
+    return {"draft": torch.empty((b, draft_len), **i64),
+            "t_next": torch.empty(b, **i64),
+            "buf": torch.empty((b, chunk_len + 1), **i64),
+            "limit": torch.empty((), **i64),
+            "temperature": torch.empty((), **f32),
+            "top_p": torch.empty((), **f32),
+            "u_pend": torch.zeros((b, candidates(vocab, top_k)), device=dev),
+            "u_acc": torch.zeros((b, spec_k), device=dev),
+            "stops": torch.tensor(stop_tokens, **i64)}
 
-    def __init__(self, params, cfg, shared, state, draft_len: int,
-                 top_k: int, spec_k: int, chunk_len: int, stop_tokens):
-        b, vocab = state.logits.shape
-        dev = state.logits.device
-        self.params, self.cfg, self.shared = params, cfg, shared
-        self.top_k, self.spec_k = top_k, spec_k
-        self.carry = dataclasses.replace(
-            state, kv=shared.kv, valid_from=torch.empty_like(
-                state.valid_from),
-            **{n: torch.empty_like(getattr(state, n)) for n in CARRY})
-        self.draft = torch.empty((b, draft_len), dtype=torch.int64,
-                                 device=dev)
-        self.t_next = torch.zeros(b, dtype=torch.int64, device=dev)
-        self.buf = torch.empty((b, chunk_len + 1), dtype=torch.int64,
-                               device=dev)
-        self.limit = torch.zeros((), dtype=torch.int64, device=dev)
-        self.temperature, self.top_p = (
-            torch.zeros((), dtype=torch.float32, device=dev)
-            for _ in range(2))
-        self.u_pend = torch.zeros((b, candidates(vocab, top_k)),
-                                  device=dev)
-        self.u_acc = torch.zeros((b, spec_k), device=dev)
-        self.stops = torch.tensor(stop_tokens, dtype=torch.int64,
-                                  device=dev)
-        self._replay = self._increments = self._keep = None
 
-    def begin(self, state, draft_ids, limit: int, temperature: float,
-              top_p: float):
-        """A chunk's start: ``state`` takes the shared cache, its carry,
-        the draft and the chunk's scalars go into the graph's buffers."""
-        self.shared.adopt(state)
-        for n in CARRY + ("valid_from",):
-            getattr(self.carry, n).copy_(getattr(state, n))
-        self.draft.copy_(draft_ids)
-        self.t_next.zero_()
-        self.buf.fill_(-1)
-        self.limit.fill_(limit)
-        self.temperature.fill_(temperature)
-        self.top_p.fill_(top_p)
+def _graph_round(params, cfg, top_k: int, spec_k: int, bufs):
+    """The captured round on a graph's buffers, which it writes."""
+    st = types.SimpleNamespace(**vars(bufs))
+    t_next = _round(params, st, bufs, top_k, spec_k, cfg,
+                    phase=contextlib.nullcontext)
+    bufs.t_next.copy_(t_next)
+    for n in CARRY:
+        if getattr(st, n) is not getattr(bufs, n):
+            getattr(bufs, n).copy_(getattr(st, n))
 
-    def forward(self):
-        """The captured round on the graph's buffers."""
-        st = dataclasses.replace(self.carry)
-        t_next = _round(self.params, st, self.draft, self.t_next, self.buf,
-                        self.u_pend, self.u_acc, self.limit,
-                        self.temperature, self.top_p, self.top_k,
-                        self.spec_k, self.stops, self.cfg,
-                        phase=contextlib.nullcontext)
-        self.t_next.copy_(t_next)
-        for n in CARRY:
-            if getattr(st, n) is not getattr(self.carry, n):
-                getattr(self.carry, n).copy_(getattr(st, n))
 
-    def round(self):
-        """One round: the capture's eager run, or a replay."""
-        if self._replay is None:
-            self._replay, _, self._increments, self._keep = capture(
-                self.forward, self.t_next.device, self.shared.pool)
-            count("spec.graph_captures")
-            return
-        self._replay()
-        add(self._increments)
-        count("spec.graph_replays")
+def round_graph(graphs: DecodeGraphs, params, cfg, state: SpecState,
+                draft_ids, top_k: int, spec_k: int, chunk_len: int,
+                stop_tokens) -> Graph:
+    """The verify round's graph of ``state``'s batch and the round's
+    shapes in ``graphs`` (:meth:`.decode_graph.DecodeGraphs.graph`). It
+    reads the carry, ``valid_from`` and the chunk's values (copied in at a
+    chunk's start) and the uniforms (drawn each round), and keeps the
+    carry."""
+    args = (draft_ids.shape[1], top_k, spec_k, chunk_len, tuple(stop_tokens))
 
-    def end(self, state):
-        """A chunk's end: ``state`` gets copies of the carry."""
-        for n in CARRY:
-            setattr(state, n, getattr(self.carry, n).clone())
+    def make(shared):
+        return Graph(shared, "spec", functools.partial(
+            _graph_round, params, cfg, top_k, spec_k), state,
+            _round_buffers(state, *args), reads=CARRY + ("valid_from",),
+            keeps=CARRY)
+    return graphs.graph(params, cfg, state, ("verify",) + args, make)
 
 
 def spec_generate_chunk(params, state: SpecState, draft_ids, cfg,
@@ -358,75 +327,52 @@ def spec_generate_chunk(params, state: SpecState, draft_ids, cfg,
     engine's, so that its requests capture once; a new one otherwise)."""
     graph = None
     if state.logits.device.type == "cuda":
-        graph = verify_graph(DecodeGraphs() if graphs is None else graphs,
-                             params, state, draft_ids, cfg, top_k, spec_k,
-                             chunk_len, stop_tokens)
+        graph = round_graph(DecodeGraphs() if graphs is None else graphs,
+                            params, cfg, state, draft_ids, top_k, spec_k,
+                            chunk_len, stop_tokens)
     return run_rounds(params, state, draft_ids, cfg, temperature, top_p,
                       top_k, spec_k, chunk_len, stop_tokens, limit, graph)
-
-
-def verify_graph(graphs: DecodeGraphs, params, state: SpecState, draft_ids,
-                 cfg, top_k: int, spec_k: int, chunk_len: int,
-                 stop_tokens) -> VerifyGraph:
-    """The verify graph of ``graphs`` for ``state``'s cache layout and the
-    round's shapes, made (not yet captured) where there is none."""
-    key = ("verify", draft_ids.shape[1], top_k, spec_k, chunk_len,
-           tuple(stop_tokens))
-    return graphs.graph(params, cfg, state, key, lambda shared: VerifyGraph(
-        params, cfg, shared, state, draft_ids.shape[1], top_k, spec_k,
-        chunk_len, stop_tokens))
 
 
 def run_rounds(params, state: SpecState, draft_ids, cfg, temperature: float,
                top_p: float, top_k: int, spec_k: int, chunk_len: int,
                stop_tokens: Tuple[int, ...], limit: int = None,
-               graph: VerifyGraph = None) -> torch.Tensor:
-    """:func:`spec_generate_chunk`'s rounds through ``graph``, or eagerly
-    where it is None (the CPU's path; on a card, the reference the graph
-    is held to)."""
-    b = state.logits.shape[0]
-    dev = state.logits.device
+               graph: Graph = None) -> torch.Tensor:
+    """:func:`spec_generate_chunk`'s rounds through ``graph`` (of
+    :func:`round_graph`), or eagerly where it is None (the CPU's path; on
+    a card, the reference the graph is held to)."""
     greedy = temperature <= 0
     limit = chunk_len if limit is None else min(limit, chunk_len)
     gen = state.generator
+    values = {"draft": draft_ids, "t_next": 0, "buf": -1, "limit": limit,
+              "temperature": temperature, "top_p": top_p}
     if graph is None:
-        carry, t_next = state, torch.zeros(b, dtype=torch.int64, device=dev)
-        buf = torch.full((b, chunk_len + 1), -1, dtype=torch.int64,
-                         device=dev)
-        draft = draft_ids.to(device=dev, dtype=torch.int64)
-        stops = torch.tensor(stop_tokens, dtype=torch.int64, device=dev)
-        scalars = [torch.tensor(v, dtype=dtype, device=dev) for v, dtype in (
-            (limit, torch.int64), (temperature, torch.float32),
-            (top_p, torch.float32))]
-        u_pend = torch.zeros((b, candidates(state.logits.shape[-1], top_k)),
-                             device=dev)
-        u_acc = torch.zeros((b, spec_k), device=dev)
+        carry, io = state, types.SimpleNamespace(**_round_buffers(
+            state, draft_ids.shape[1], top_k, spec_k, chunk_len,
+            stop_tokens))
+        put(io, values)
     else:
-        graph.begin(state, draft_ids, limit, temperature, top_p)
-        carry, buf, u_pend, u_acc = (graph.carry, graph.buf, graph.u_pend,
-                                     graph.u_acc)
+        graph.begin(state, **values)
+        carry = io = graph.bufs
 
     while True:
         with span("spec.round"):
             with span("spec.sync"):
-                if graph is not None:
-                    t_next = graph.t_next
-                active = ~carry.done & (t_next < limit)
+                active = ~carry.done & (io.t_next < limit)
                 count("host.syncs")
                 go = bool(active.any())     # the round's one host sync
             if not go:
                 break
             count("spec.rounds")
             if not greedy:
-                u_pend.uniform_(generator=gen)
-                u_acc.uniform_(generator=gen)
+                io.u_pend.uniform_(generator=gen)
+                io.u_acc.uniform_(generator=gen)
             if graph is None:
-                t_next = _round(params, state, draft, t_next, buf, u_pend,
-                                u_acc, *scalars, top_k, spec_k, stops, cfg)
+                io.t_next = _round(params, state, io, top_k, spec_k, cfg)
             else:
                 with span("spec.forward"):
-                    graph.round()
+                    graph()
     if graph is None:
-        return buf[:, :chunk_len]
+        return io.buf[:, :chunk_len]
     graph.end(state)
-    return buf[:, :chunk_len].clone()
+    return io.buf[:, :chunk_len].clone()

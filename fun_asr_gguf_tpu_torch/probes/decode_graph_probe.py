@@ -24,23 +24,27 @@ capture), one round's device events (the flag read, the uniforms and the
 replay) and whether 16 replayed rounds give the tokens, carry, cache and
 generator state of 16 eager rounds bit for bit, greedy and at T = 0.4.
 
-One line a route, then a JSON summary. :func:`decode_params`,
+Both graphs are reached as the engine reaches them, through
+``DecodeGraphs.graph``. One line a route, then a JSON summary.
+:func:`decode_params`, :func:`prefilled`, :func:`clone`,
 :func:`verify_draft` and :func:`verify_chunk` also feed the card tests.
 """
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 
 import torch
 
 from ..models import decode_graph as dg
+from ..models import generate
 from ..models.config import Qwen3Config
-from ..models.generate import prefill_init
+from ..models.generate import prefill_init, step_graph
 from ..models.qwen3 import embed_tokens, fuse_qwen3_params_q8i, \
     qwen3_decode_step
-from ..models.speculative import CARRY, run_rounds, spec_init, verify_graph
+from ..models.speculative import CARRY, round_graph, run_rounds, spec_init
 from ..ops.quant_matmul import Int8Weight
 from .q8_probe import q8_decode_params, two_point_ms
 
@@ -117,9 +121,19 @@ def eager_step(params, state, token, cfg):
     state.step += 1
 
 
-def graph_step(graphs, params, state, token, cfg):
-    graphs.step(params, state, token, cfg)
+def decode_graph(graphs, params, state, cfg):
+    """``state``'s decode graph of ``graphs``, begun as a chunk begins."""
+    graph = step_graph(graphs, params, cfg, state)
+    graph.begin(state)
+    return graph
+
+
+def graph_step(graph, state, token):
+    """One decode step of ``state`` through ``graph`` as ``generate_chunk``
+    runs it (no sync); returns the logits, the graph's buffer."""
+    logits = generate.graphed_step(graph, state, token)
     state.step += 1
+    return logits
 
 
 def step_events(step):
@@ -156,30 +170,35 @@ def route_report(device, route, kv_int8, cfg):
     first = clone(base)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    graph_step(graphs, params, first, tokens[0], cfg)
+    graph_step(decode_graph(graphs, params, first, cfg), first, tokens[0])
     torch.cuda.synchronize()
     res["capture_ms"] = (time.perf_counter() - t0) * 1e3
 
     # bit-equal: 16 replays against 16 eager steps
     got, want = clone(base), clone(base)
+    graph = decode_graph(graphs, params, got, cfg)
     same = True
     for t in tokens[:CHECK_STEPS]:
-        graph_step(graphs, params, got, t, cfg)
+        logits = graph_step(graph, got, t)
         eager_step(params, want, t, cfg)
-        same &= torch.equal(got.logits, want.logits)
-    res["bit_equal"] = bool(same and all(
-        torch.equal(a, b) for a, b in zip(dg._tensors(got.kv),
-                                          dg._tensors(want.kv))))
+        same &= torch.equal(logits, want.logits)
+    graph.end(got)
+    res["bit_equal"] = bool(same and torch.equal(got.logits, want.logits)
+                            and all(torch.equal(a, b) for a, b in zip(
+                                dg._tensors(got.kv), dg._tensors(want.kv))))
 
-    def runner(step):
+    def runner(start):
         def run(n):
             state = clone(base)
+            step = start(state)
             for t in tokens[:n]:
-                step(state, t)
+                step(t)
             torch.cuda.synchronize()
         return run
-    eager = runner(lambda s, t: eager_step(params, s, t, cfg))
-    graphed = runner(lambda s, t: graph_step(graphs, params, s, t, cfg))
+    eager = runner(lambda s: functools.partial(eager_step, params, s,
+                                               cfg=cfg))
+    graphed = runner(lambda s: functools.partial(
+        graph_step, decode_graph(graphs, params, s, cfg), s))
     res["eager_ms"] = two_point_ms(eager, 8, 40)
     res["graph_ms"] = two_point_ms(graphed, 8, 40)
 
@@ -187,20 +206,22 @@ def route_report(device, route, kv_int8, cfg):
     # ahead; an eager step's ~1 000 launches would fill the launch queue,
     # so its enqueue is its host time, eager_ms)
     state = clone(base)
-    graph_step(graphs, params, state, tokens[0], cfg)
+    graph = decode_graph(graphs, params, state, cfg)
+    graph_step(graph, state, tokens[0])
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000_000)              # ~0.1 s of card time
     times = []
     for t in tokens[1:9]:
         t0 = time.perf_counter()
-        graph_step(graphs, params, state, t, cfg)
+        graph_step(graph, state, t)
         times.append(time.perf_counter() - t0)
     res["graph_enqueue_ms"] = sorted(times)[len(times) // 2] * 1e3
     torch.cuda.synchronize()
     state = clone(base)
-    graph_step(graphs, params, state, tokens[0], cfg)
+    graph = decode_graph(graphs, params, state, cfg)
+    graph_step(graph, state, tokens[0])
     res["step_events"] = step_events(
-        lambda: graph_step(graphs, params, state, tokens[1], cfg))
+        lambda: graph_step(graph, state, tokens[1]))
     return res
 
 
@@ -217,8 +238,8 @@ def verify_chunk(graphs, params, state, draft, cfg, temperature, limit):
     """A chunk of up to ``limit`` verify rounds of ``state`` (a SpecState)
     through the verify graph of ``graphs``, as the engine runs them, or
     eagerly where ``graphs`` is None; no stop ids."""
-    graph = None if graphs is None else verify_graph(
-        graphs, params, state, draft, cfg, 50, SPEC_K, CHUNK, ())
+    graph = None if graphs is None else round_graph(
+        graphs, params, cfg, state, draft, 50, SPEC_K, CHUNK, ())
     return run_rounds(params, state, draft, cfg, temperature, 1.0, 50,
                       SPEC_K, CHUNK, (), limit, graph)
 

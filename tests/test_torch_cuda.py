@@ -1338,10 +1338,12 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
-# the decode step's CUDA graph (models/decode_graph.py)
+# the decode loop's CUDA graphs (models/decode_graph.py): the plain step's
+# and the verify round's
 # ---------------------------------------------------------------------------
 
 GRAPH_STEPS = 40
+VERIFY_ROUNDS = 16
 
 
 def _graph_setup(dev, route, kv_int8=False, seed=3):
@@ -1365,92 +1367,153 @@ def _same_kv(a, b):
                for x, y in zip(dg._tensors(a), dg._tensors(b)))
 
 
+def _steps(graphs, params, state, cfg, temperature, n):
+    """A chunk of up to ``n`` decode steps of ``state`` (no stop ids)
+    through its graph of ``graphs`` as ``generate_chunk`` runs it, or
+    eagerly where ``graphs`` is None: the tokens."""
+    from fun_asr_gguf_tpu_torch.models import generate as tg
+    graph = None if graphs is None else tg.step_graph(graphs, params, cfg,
+                                                      state)
+    return tg.run_steps(params, state, cfg, temperature, 1.0, 50, n, (),
+                        None, graph)
+
+
 GRAPH_ROUTES = [("q8_0", False), ("q8_0", True), ("int8", False),
                 ("int8", True), ("mega", False), ("q8i", False)]
+VERIFY_ROUTES = [("q8_0", False), ("q8_0", True), ("int8", False),
+                 ("q8i", False)]
+GRAPH_CASES = ([("decode", r, kv, t) for r, kv in GRAPH_ROUTES
+                for t in (0.0, 0.4)]
+               + [("verify", r, kv, t) for r, kv in VERIFY_ROUTES
+                  for t in (0.0, 0.4)])
 
 
-@pytest.mark.parametrize("route,kv_int8", GRAPH_ROUTES)
-def test_decode_graph_replays_are_eager_steps(dev, route, kv_int8):
-    """40 replays give the logits and cache of 40 eager steps, bit for bit,
-    and add to the launch counters what the eager steps add; a second
-    state of the shape captures nothing."""
+@pytest.mark.parametrize("kind,route,kv_int8,temperature", GRAPH_CASES)
+def test_graph_replays_are_eager(dev, kind, route, kv_int8, temperature):
+    """Replays give bit for bit what eager calls give, up to 40 decode
+    steps' tokens, logits, carry, cache and generator state or 16 verify
+    rounds' tokens, carry, cache and generator state, and add to the
+    launch counters what the eager calls add; a second state of the shape
+    captures nothing."""
     from fun_asr_gguf_tpu_torch import profiling
     from fun_asr_gguf_tpu_torch.models import decode_graph as dg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
     from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
-    params, cfg, first = _graph_setup(dev, route, kv_int8, seed=1)
-    toks = _graph_tokens(dev, GRAPH_STEPS, 3, cfg.vocab_size)
+    params, cfg, base = _graph_setup(dev, route, kv_int8, seed=1)
+    if kind == "decode":
+        calls, prefix = "decode.steps", "decode"
+
+        def new():
+            return gp.clone(base)
+
+        def chunk(graphs, state, n=GRAPH_STEPS):
+            return _steps(graphs, params, state, cfg, temperature, n)
+    else:
+        draft = gp.verify_draft(dev, cfg.vocab_size)
+        calls, prefix = "spec.rounds", "spec"
+
+        def new():
+            return tsp.spec_init(gp.clone(base))
+
+        def chunk(graphs, state, n=VERIFY_ROUNDS):
+            return gp.verify_chunk(graphs, params, state, draft, cfg,
+                                   temperature, n)
     graphs = dg.DecodeGraphs()
-    gp.graph_step(graphs, params, first, toks[0], cfg)      # captures
-    eager = gp.prefilled(dev, params, cfg, kv_int8, seed=2)
-    graphed = gp.clone(eager)
-    assert eager.kv.head_major is (route == "mega")
+    chunk(graphs, new(), 1)                                     # captures
+    graphed, eager = new(), new()
     named = profiling.counters()
     launches = dg.counts()[0]
-    got = []
-    for t in toks:
-        gp.graph_step(graphs, params, graphed, t, cfg)
-        got.append(graphed.logits.clone())
+    got = chunk(graphs, graphed)
     torch.cuda.synchronize()
     replayed = {k: v - launches[k] for k, v in dg.counts()[0].items()}
     after = profiling.counters()
-    assert after["decode.graph_captures"] == named["decode.graph_captures"]
-    assert after["decode.graph_replays"] == \
-        named["decode.graph_replays"] + GRAPH_STEPS
+    assert after[f"{prefix}.graph_captures"] == \
+        named[f"{prefix}.graph_captures"]
+    ran = after[calls] - named.get(calls, 0)
+    assert ran > 0
+    assert after[f"{prefix}.graph_replays"] == \
+        named.get(f"{prefix}.graph_replays", 0) + ran
     launches = dg.counts()[0]
-    for i, t in enumerate(toks):
-        gp.eager_step(params, eager, t, cfg)
-        assert torch.isfinite(eager.logits).all()
-        assert torch.equal(got[i], eager.logits), i
-    assert _same_kv(graphed.kv, eager.kv)
+    want = chunk(None, eager)
+    torch.cuda.synchronize()
     eagerly = {k: v - launches[k] for k, v in dg.counts()[0].items()}
+    assert torch.isfinite(eager.logits).all()
+    assert torch.equal(got, want)
+    if kind == "decode":
+        assert eager.kv.head_major is (route == "mega")
+        assert graphed.step == eager.step == ran
+        for name in ("logits", "forbid", "ring", "n_gen", "done",
+                     "aborted"):
+            assert torch.equal(getattr(graphed, name),
+                               getattr(eager, name)), name
+        assert _same_kv(graphed.kv, eager.kv)
+        assert torch.equal(graphed.generator.get_state(),
+                           eager.generator.get_state())
+    else:
+        assert int(eager.rounds[0]) == VERIFY_ROUNDS
+        assert gp.same_rounds(graphed, eager)
     assert replayed == eagerly and any(eagerly.values())
 
 
-def test_decode_graph_second_request_captures_nothing(dev):
-    """generate_chunk on a second state of the same shape replays every
-    step through the engine's graphs and captures nothing."""
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_graph_second_request_captures_nothing(dev, kind):
+    """generate_chunk or spec_generate_chunk on a second state of the same
+    shape replays every step or round through the engine's graphs and
+    captures nothing."""
     from fun_asr_gguf_tpu_torch import profiling
     from fun_asr_gguf_tpu_torch.models import decode_graph as dg
     from fun_asr_gguf_tpu_torch.models import generate as tg
+    from fun_asr_gguf_tpu_torch.models import speculative as tsp
     from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
     params, cfg, _ = _graph_setup(dev, "q8_0")
+    draft = gp.verify_draft(dev, cfg.vocab_size)
     graphs = dg.DecodeGraphs()
+    calls, prefix = (("decode.steps", "decode") if kind == "decode" else
+                     ("spec.rounds", "spec"))
     for seed in (1, 2):
         state = gp.prefilled(dev, params, cfg, False, seed=seed)
         before = profiling.counters()
-        tg.generate_chunk(params, state, cfg, 0.4, 1.0, 50, chunk_len=16,
-                          stop_tokens=(), graphs=graphs)
+        if kind == "decode":
+            tg.generate_chunk(params, state, cfg, 0.4, 1.0, 50, chunk_len=16,
+                              stop_tokens=(), graphs=graphs)
+        else:
+            tsp.spec_generate_chunk(params, tsp.spec_init(state), draft, cfg,
+                                    0.4, 1.0, 50, spec_k=8, chunk_len=64,
+                                    stop_tokens=(), limit=VERIFY_ROUNDS,
+                                    graphs=graphs)
         now = profiling.counters()
         grew = {k: now.get(k, 0) - before.get(k, 0) for k in (
-            "decode.steps", "decode.graph_replays", "decode.graph_captures")}
-        assert grew["decode.steps"] == grew["decode.graph_replays"] == 16
-        assert grew["decode.graph_captures"] == (1 if seed == 1 else 0)
+            calls, f"{prefix}.graph_replays", f"{prefix}.graph_captures")}
+        captured = grew[f"{prefix}.graph_captures"]
+        assert grew[calls] == 16
+        assert captured == (1 if seed == 1 else 0)
+        assert grew[f"{prefix}.graph_replays"] == 16 - (
+            captured if kind == "verify" else 0)
 
 
 def test_decode_graph_second_live_state_keeps_its_cache(dev):
-    """Two live states of one shape take turns through one graph: each
-    stays equal to its own eager steps."""
+    """Two live states of one shape take turns through one graph, a chunk
+    of three sampled steps a turn: each stays equal to its own eager
+    steps."""
     from fun_asr_gguf_tpu_torch.models import decode_graph as dg
     from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
     params, cfg, _ = _graph_setup(dev, "q8_0")
-    toks = _graph_tokens(dev, 12, 5, cfg.vocab_size)
     refs = [gp.prefilled(dev, params, cfg, False, seed=s) for s in (1, 2)]
     states = [gp.clone(r) for r in refs]
     graphs = dg.DecodeGraphs()
     for turn, k in enumerate([0, 1, 0, 1]):
-        for t in toks[3 * turn:3 * turn + 3]:
-            gp.eager_step(params, refs[k], t, cfg)
-            gp.graph_step(graphs, params, states[k], t, cfg)
+        want = _steps(None, params, refs[k], cfg, 0.4, 3)
+        assert torch.equal(_steps(graphs, params, states[k], cfg, 0.4, 3),
+                           want), turn
         for s, r in zip(states, refs):
-            if s.step:
-                assert torch.equal(s.logits, r.logits), turn
-                assert _same_kv(s.kv, r.kv), turn
+            assert torch.equal(s.logits, r.logits), turn
+            assert _same_kv(s.kv, r.kv), turn
         assert states[1 - k].kv is not states[k].kv
 
 
 def test_decode_graph_takes_the_cache_after_verify_rounds(dev):
     """Verify rounds, spec_to_gen, then replays: equal to eager steps from
-    the same converted state."""
+    the same converted state, sampled."""
     from fun_asr_gguf_tpu_torch.models import decode_graph as dg
     from fun_asr_gguf_tpu_torch.models import speculative as tsp
     from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
@@ -1462,65 +1525,15 @@ def test_decode_graph_takes_the_cache_after_verify_rounds(dev):
                             limit=6)
     got = tsp.spec_to_gen(spec)
     ref = gp.clone(got)
-    graphs = dg.DecodeGraphs()
-    for t in _graph_tokens(dev, 12, 7, cfg.vocab_size):
-        gp.eager_step(params, ref, t, cfg)
-        gp.graph_step(graphs, params, got, t, cfg)
-        assert torch.equal(got.logits, ref.logits)
+    want = _steps(None, params, ref, cfg, 0.4, 12)
+    assert torch.equal(_steps(dg.DecodeGraphs(), params, got, cfg, 0.4, 12),
+                       want)
+    assert torch.equal(got.logits, ref.logits)
     assert _same_kv(got.kv, ref.kv)
 
 
-# ---------------------------------------------------------------------------
-# the verify round's CUDA graph (models/speculative.py)
-# ---------------------------------------------------------------------------
-
-VERIFY_ROUNDS = 16
-
-
 @pytest.mark.parametrize("temperature", [0.0, 0.4])
-@pytest.mark.parametrize("route,kv_int8", [("q8_0", False), ("q8_0", True),
-                                           ("int8", False), ("q8i", False)])
-def test_verify_graph_replays_are_eager_rounds(dev, route, kv_int8,
-                                               temperature):
-    """16 replayed rounds give the tokens, carry, cache and generator state
-    of 16 eager rounds, bit for bit, and add to the launch counters what
-    the eager rounds add; a second state of the shape captures nothing."""
-    from fun_asr_gguf_tpu_torch import profiling
-    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
-    from fun_asr_gguf_tpu_torch.models import speculative as tsp
-    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
-    params, cfg, base = _graph_setup(dev, route, kv_int8, seed=1)
-    draft = gp.verify_draft(dev, cfg.vocab_size)
-    graphs = dg.DecodeGraphs()
-    gp.verify_chunk(graphs, params, tsp.spec_init(gp.clone(base)), draft,
-                    cfg, temperature, 1)                         # captures
-    graphed = tsp.spec_init(gp.clone(base))
-    eager = tsp.spec_init(gp.clone(base))
-    named = profiling.counters()
-    launches = dg.counts()[0]
-    got = gp.verify_chunk(graphs, params, graphed, draft, cfg, temperature,
-                          VERIFY_ROUNDS)
-    torch.cuda.synchronize()
-    replayed = {k: v - launches[k] for k, v in dg.counts()[0].items()}
-    after = profiling.counters()
-    assert after["spec.graph_captures"] == named["spec.graph_captures"]
-    assert after["spec.graph_replays"] == \
-        named["spec.graph_replays"] + VERIFY_ROUNDS
-    launches = dg.counts()[0]
-    want = gp.verify_chunk(None, params, eager, draft, cfg, temperature,
-                           VERIFY_ROUNDS)
-    torch.cuda.synchronize()
-    eagerly = {k: v - launches[k] for k, v in dg.counts()[0].items()}
-    assert int(eager.rounds[0]) == VERIFY_ROUNDS
-    assert torch.isfinite(eager.logits).all()
-    assert torch.equal(got, want)
-    assert gp.same_rounds(graphed, eager)
-    assert replayed == eagerly and any(eagerly.values())
-
-
-@pytest.mark.parametrize("temperature", [0.0, 0.4])
-@pytest.mark.parametrize("route,kv_int8", [("q8_0", False), ("q8_0", True),
-                                           ("int8", False), ("q8i", False)])
+@pytest.mark.parametrize("route,kv_int8", VERIFY_ROUTES)
 def test_verify_graph_rounds_are_the_parent_rounds(dev, route, kv_int8,
                                                    temperature):
     """16 replayed rounds give the tokens, carry, cache and generator state
@@ -1547,32 +1560,6 @@ def test_verify_graph_rounds_are_the_parent_rounds(dev, route, kv_int8,
     assert int(parent.rounds[0]) == VERIFY_ROUNDS
     assert torch.equal(got, want)
     assert gp.same_rounds(graphed, parent)
-
-
-def test_verify_graph_second_request_captures_nothing(dev):
-    """spec_generate_chunk on a second state of the same shape replays
-    every round through the engine's graphs and captures nothing."""
-    from fun_asr_gguf_tpu_torch import profiling
-    from fun_asr_gguf_tpu_torch.models import decode_graph as dg
-    from fun_asr_gguf_tpu_torch.models import speculative as tsp
-    from fun_asr_gguf_tpu_torch.probes import decode_graph_probe as gp
-    params, cfg, _ = _graph_setup(dev, "q8_0")
-    draft = gp.verify_draft(dev, cfg.vocab_size)
-    graphs = dg.DecodeGraphs()
-    for seed in (1, 2):
-        state = tsp.spec_init(gp.prefilled(dev, params, cfg, False,
-                                           seed=seed))
-        before = profiling.counters()
-        tsp.spec_generate_chunk(params, state, draft, cfg, 0.4, 1.0, 50,
-                                spec_k=8, chunk_len=64, stop_tokens=(),
-                                limit=VERIFY_ROUNDS, graphs=graphs)
-        now = profiling.counters()
-        grew = {k: now.get(k, 0) - before.get(k, 0) for k in (
-            "spec.rounds", "spec.graph_replays", "spec.graph_captures")}
-        assert grew["spec.rounds"] == VERIFY_ROUNDS
-        assert grew["spec.graph_captures"] == (1 if seed == 1 else 0)
-        assert grew["spec.graph_replays"] == VERIFY_ROUNDS - grew[
-            "spec.graph_captures"]
 
 
 def test_engine_captures_its_graphs_only_at_warm_up(dev, tmp_path):
